@@ -1,0 +1,397 @@
+"""Batched ordering LP of the K-core OCS problem (paper Sec. IV-A2).
+
+Port of the batched part of `repro.core.lp`.  Variables: completion times
+T_m and pairwise precedences x_{m,m'} in [0, 1] with x_{m,m'} + x_{m',m} = 1;
+per coflow m and port p
+
+  transmission (Eq. 4):     T_m >= (1/R) ( rho_{m,p} + sum_{m'!=m} rho_{m',p} x_{m',m} )
+  reconfiguration (Eq. 5):  T_m >= (delta/K) ( tau_{m,p} + sum_{m'!=m} tau_{m',p} x_{m',m} )
+  release (Eq. 6):          T_m >= a_m
+
+and the objective min sum_m w_m T_m.  The ensemble solver pads a bucket of
+instances to one shape and runs projected Adam on the temperature-annealed
+smoothed objective, batched over the leading member axis (a Python loop in
+place of ``lax.scan``, a written-out batch axis in place of ``vmap``):
+
+  * the smooth annealed-logsumexp gradient is autograd over `torch.bmm`
+    (the JAX package leaves that product to XLA, outside any kernel);
+  * the hard-max objective of every step (best-so-far tracking, the start
+    and the returned T) is the `lp_terms_batch` kernel, then a max with
+    the releases.
+
+Matrix products run in full f32: TF32 is switched off where the LP runs
+(`solve_subgradient_batch_arrays`).  `solve_exact` (HiGHS) is not ported
+yet; the tests take it from the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.coflow import CoflowInstance
+from repro_torch.device import resolve_device
+from repro_torch.kernels.lp_terms import lp_terms_batch
+from repro_torch.kernels.port_stats import port_stats
+
+__all__ = [
+    "LPSolution",
+    "LPSolutionBatch",
+    "pack_lp_arrays",
+    "solve_subgradient_batch",
+    "solve_subgradient_batch_arrays",
+]
+
+#: Solver inputs of `pack_lp_arrays`, in `_subgradient_run_batch` order.
+LP_ARRAY_NAMES = (
+    "Y0", "p_rho", "p_tau", "weights", "releases", "inv_R",
+    "delta_over_K", "coflow_mask", "port_mask",
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class LPSolution:
+    """Solution of the ordering LP relaxation (host NumPy)."""
+
+    completion: np.ndarray  # (M,) T~_m
+    precedence: np.ndarray  # (M, M) x_{m,m'}; diag = 0 by convention
+    objective: float  # sum_m w_m T~_m
+    method: str
+    iterations: int = 0
+
+    def order(self) -> np.ndarray:
+        """Coflow ids sorted by non-decreasing T~_m (Algorithm 1 Line 2)."""
+        return np.argsort(self.completion, kind="stable")
+
+
+def _precedence_from_Y(Y: np.ndarray) -> np.ndarray:
+    """Full precedence matrix (diag 0, x_ab + x_ba = 1) from the solver's
+    strict-upper-triangular Y."""
+    M = Y.shape[0]
+    x = np.zeros((M, M))
+    iu = np.triu_indices(M, k=1)
+    x[iu] = Y[iu]
+    x[(iu[1], iu[0])] = 1.0 - Y[iu]
+    return x
+
+
+@dataclasses.dataclass(frozen=True)
+class LPSolutionBatch:
+    """Padded ensemble solution of the ordering LP, as device tensors.
+
+    One row per bucket member, padded to the bucket shape; padded coflow
+    slots carry completion 0.  `order_batch` turns the completions into
+    every member's global order in one masked stable argsort; `unpack`
+    materializes per-instance `LPSolution`s on the host.
+    """
+
+    completion: torch.Tensor  # (B, Mp) f32 T~_m, 0 on padded slots
+    y: torch.Tensor  # (B, Mp, Mp) f32 strict-upper-tri precedence values
+    objective: torch.Tensor  # (B,) f32 sum_m w_m T~_m
+    method: str
+    iterations: int = 0
+
+    def order_batch(self, coflow_mask: torch.Tensor) -> torch.Tensor:
+        """(B, Mp) padded orders: non-decreasing T~_m per member, padded
+        slots pushed stably to the tail (Algorithm 1 Line 2)."""
+        key = torch.where(
+            coflow_mask, self.completion.to(torch.float64), math.inf
+        )
+        return torch.argsort(key, dim=1, stable=True)
+
+    def unpack(self, num_coflows: Sequence[int]) -> list[LPSolution]:
+        """Per-instance `LPSolution`s (host f64, as the reference's)."""
+        comp = self.completion.cpu().numpy().astype(np.float64)
+        y = self.y.cpu().numpy().astype(np.float64)
+        obj = self.objective.cpu().numpy().astype(np.float64)
+        return [
+            LPSolution(
+                completion=comp[b, :M],
+                precedence=_precedence_from_Y(y[b, :M, :M]),
+                objective=float(obj[b]),
+                method=self.method,
+                iterations=self.iterations,
+            )
+            for b, M in enumerate(num_coflows)
+        ]
+
+
+# ---------------------------------------------------------------------------
+# Packing
+# ---------------------------------------------------------------------------
+
+
+def instance_port_stats(
+    instances: Sequence[CoflowInstance], device: torch.device
+) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Per-instance ``(rho (M, 2N) f64, tau (M, 2N) int32)`` on ``device``.
+
+    One `port_stats` launch per distinct port count: matrices of one N are
+    stacked unpadded (zero padding would change NumPy's pairwise summation
+    order, and with it the last bits of rho).
+    """
+    out: list = [None] * len(instances)
+    by_n: dict[int, list[int]] = {}
+    for b, inst in enumerate(instances):
+        by_n.setdefault(inst.num_ports, []).append(b)
+    for n, idx in by_n.items():
+        demands = torch.from_numpy(
+            np.concatenate([instances[b].demands for b in idx])
+        ).to(device)
+        rho, tau = port_stats(demands)
+        start = 0
+        for b in idx:
+            M = instances[b].num_coflows
+            out[b] = (rho[start:start + M], tau[start:start + M])
+            start += M
+    return out
+
+
+def global_lower_bound(
+    instance: CoflowInstance, rho: torch.Tensor
+) -> torch.Tensor:
+    """delta + rho_m / R per coflow, f64 -- `CoflowInstance.global_lower_bound`
+    from device port stats, with the same f64 operations."""
+    if rho.shape[0] == 0:
+        return rho.new_zeros(0)
+    return instance.delta + rho.amax(dim=1) / instance.aggregate_rate
+
+
+def _warm_start_Y0(weights: torch.Tensor, glb: torch.Tensor) -> torch.Tensor:
+    """Strict-upper-triangular f32 warm start from the weighted global
+    lower-bound order (WSPT-like); Y0[a, b] = 1 iff a precedes b, kept
+    only for a < b.
+    """
+    M = weights.shape[0]
+    score = weights / torch.clamp(glb, min=1e-12)
+    order = torch.argsort(-score, stable=True)
+    pos = torch.empty(M, dtype=torch.int64, device=weights.device)
+    pos[order] = torch.arange(M, device=weights.device)
+    return torch.triu((pos[:, None] < pos[None, :]).to(torch.float32), 1)
+
+
+def _pack(
+    instances: Sequence[CoflowInstance],
+    stats: Sequence[tuple[torch.Tensor, torch.Tensor]],
+    glbs: Sequence[torch.Tensor],
+    pad_coflows: int | None,
+    pad_ports: int | None,
+    device: torch.device,
+) -> dict[str, torch.Tensor]:
+    B = len(instances)
+    Ms = [inst.num_coflows for inst in instances]
+    Ps = [2 * inst.num_ports for inst in instances]
+    Mp = pad_coflows if pad_coflows is not None else max(Ms, default=0)
+    Pp = pad_ports if pad_ports is not None else max(Ps, default=0)
+    if B and (Mp < max(Ms) or Pp < max(Ps)):
+        raise ValueError(
+            f"bucket shape ({Mp}, {Pp}) too small for ensemble maxima "
+            f"({max(Ms)}, {max(Ps)})"
+        )
+
+    f32 = dict(dtype=torch.float32, device=device)
+    Y0 = torch.zeros((B, Mp, Mp), **f32)
+    p_rho = torch.zeros((B, Mp, Pp), **f32)
+    p_tau = torch.zeros((B, Mp, Pp), **f32)
+    weights = np.zeros((B, Mp), dtype=np.float32)
+    releases = np.zeros((B, Mp), dtype=np.float32)
+    inv_R = np.zeros(B, dtype=np.float32)
+    delta_over_K = np.zeros(B, dtype=np.float32)
+    coflow_mask = np.zeros((B, Mp), dtype=bool)
+    port_mask = np.zeros((B, Pp), dtype=bool)
+    for b, inst in enumerate(instances):
+        M, P = Ms[b], Ps[b]
+        rho, tau = stats[b]
+        p_rho[b, :M, :P] = rho.to(torch.float32)
+        p_tau[b, :M, :P] = tau.to(torch.float32)
+        weights[b, :M] = inst.weights
+        releases[b, :M] = inst.releases
+        inv_R[b] = 1.0 / inst.aggregate_rate
+        delta_over_K[b] = inst.delta / inst.num_cores
+        coflow_mask[b, :M] = True
+        port_mask[b, :P] = True
+        w64 = torch.from_numpy(inst.weights).to(device)
+        Y0[b, :M, :M] = _warm_start_Y0(w64, glbs[b])
+    host = dict(
+        weights=weights, releases=releases, inv_R=inv_R,
+        delta_over_K=delta_over_K, coflow_mask=coflow_mask,
+        port_mask=port_mask,
+    )
+    out = dict(Y0=Y0, p_rho=p_rho, p_tau=p_tau)
+    out.update({k: torch.from_numpy(v).to(device) for k, v in host.items()})
+    return out
+
+
+def pack_lp_arrays(
+    instances: Sequence[CoflowInstance],
+    pad_coflows: int | None = None,
+    pad_ports: int | None = None,
+    device: str | torch.device = "cuda",
+) -> dict[str, torch.Tensor]:
+    """Pad an ensemble into the batched LP solver's input tensors.
+
+    Same dict, layout and values as `repro.core.lp.pack_lp_arrays`, as
+    tensors on ``device``; the port statistics come from the `port_stats`
+    kernel.  ``pad_*`` default to the ensemble maxima.
+    """
+    device = resolve_device(device)
+    instances = list(instances)
+    stats = instance_port_stats(instances, device)
+    glbs = [global_lower_bound(i, s[0]) for i, s in zip(instances, stats)]
+    return _pack(instances, stats, glbs, pad_coflows, pad_ports, device)
+
+
+# ---------------------------------------------------------------------------
+# Batched projected-subgradient solver
+# ---------------------------------------------------------------------------
+
+
+def _precedence_X(Y: torch.Tensor, coflow_mask: torch.Tensor) -> torch.Tensor:
+    """X~ (B, Mp, Mp): X[a, b] = Y[a, b] (a < b), 1 - Y[b, a] (a > b), diag
+    1 (folding the coflow's own stats into the product), padded coflow
+    rows and columns zeroed."""
+    M = Y.shape[1]
+    ones = torch.ones((M, M), dtype=torch.bool, device=Y.device)
+    iu = torch.triu(ones, 1)
+    il = torch.tril(ones, -1)
+    X = torch.where(iu, Y, 0.0) + torch.where(il, 1.0 - Y.transpose(1, 2), 0.0)
+    X = X + torch.eye(M, dtype=Y.dtype, device=Y.device)
+    cm = coflow_mask.to(Y.dtype)
+    return X * (cm[:, :, None] * cm[:, None, :])
+
+
+def _completion_from_Y_masked(
+    Y: torch.Tensor,
+    p_rho: torch.Tensor,
+    p_tau: torch.Tensor,
+    releases: torch.Tensor,
+    inv_R: torch.Tensor,
+    delta_over_K: torch.Tensor,
+    coflow_mask: torch.Tensor,
+    port_mask: torch.Tensor,
+    temp: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Shape-padded T_m(Y), (B, Mp).
+
+    Hard (``temp=None``): the `lp_terms_batch` kernel's scaled row maxima,
+    then a max with the releases -- the reference's -inf-masked max over
+    [load, rec, release] (padded ports hold zeros, real loads are >= 0).
+    Smooth: the temperature-scaled logsumexp over the same columns, padded
+    ports masked to -inf, through `torch.bmm` so autograd differentiates it.
+    """
+    X = _precedence_X(Y, coflow_mask)
+    if temp is None:
+        load, rec = lp_terms_batch(X, p_rho, p_tau, inv_R, delta_over_K)
+        return torch.maximum(torch.maximum(load, rec), releases)
+    Xt = X.transpose(1, 2)
+    load = torch.bmm(Xt, p_rho) * inv_R[:, None, None]
+    rec = torch.bmm(Xt, p_tau) * delta_over_K[:, None, None]
+    stacked = torch.cat([load, rec, releases[:, :, None]], dim=2)
+    col_mask = torch.cat(
+        [port_mask, port_mask, torch.ones_like(port_mask[:, :1])], dim=1
+    )
+    t = temp[:, None, None]
+    z = torch.where(col_mask[:, None, :], stacked / t, -math.inf)
+    return temp[:, None] * torch.logsumexp(z, dim=2)
+
+
+def _subgradient_run_batch(
+    Y0: torch.Tensor,
+    p_rho: torch.Tensor,
+    p_tau: torch.Tensor,
+    weights: torch.Tensor,
+    releases: torch.Tensor,
+    inv_R: torch.Tensor,
+    delta_over_K: torch.Tensor,
+    coflow_mask: torch.Tensor,
+    port_mask: torch.Tensor,
+    *,
+    iters: int,
+    lr: float = 0.05,
+):
+    """Ensemble projected Adam: the whole batch advances in lockstep.
+
+    Instances are independent, so the gradient of the summed smooth
+    objective is the stack of per-instance gradients, and Adam is
+    elementwise.  Per-member best-so-far is tracked under the true
+    piecewise-linear objective (one `lp_terms_batch` launch per step, plus
+    one for the start and one for the returned T).
+    """
+    statics = (p_rho, p_tau, releases, inv_R, delta_over_K, coflow_mask, port_mask)
+
+    def hard(Y):
+        return _completion_from_Y_masked(Y, *statics)
+
+    T0 = hard(Y0)
+    temp0 = torch.clamp(T0.amax(dim=1) * 0.05, min=1e-3)
+    Y = Y0
+    m = torch.zeros_like(Y0)
+    v = torch.zeros_like(Y0)
+    best_Y = Y0
+    best_F = (weights * T0).sum(dim=1)
+    for t in range(iters):
+        temps = temp0 * math.exp(-4.0 * t / iters) + 1e-3
+        with torch.enable_grad():
+            Yg = Y.detach().requires_grad_(True)
+            smooth = _completion_from_Y_masked(Yg, *statics, temp=temps)
+            (g,) = torch.autograd.grad((weights * smooth).sum(), Yg)
+        m = 0.9 * m + 0.1 * g
+        v = 0.999 * v + 0.001 * g * g
+        mh = m / (1.0 - 0.9 ** (t + 1.0))
+        vh = v / (1.0 - 0.999 ** (t + 1.0))
+        Y = torch.clamp(Y - lr * mh / (torch.sqrt(vh) + 1e-8), 0.0, 1.0)
+        F = (weights * hard(Y)).sum(dim=1)
+        better = F < best_F
+        best_Y = torch.where(better[:, None, None], Y, best_Y)
+        best_F = torch.where(better, F, best_F)
+    return best_Y, hard(best_Y), best_F
+
+
+def solve_subgradient_batch_arrays(
+    arrays: dict[str, torch.Tensor],
+    iters: int = 3000,
+) -> LPSolutionBatch:
+    """Array-in/array-out ensemble LP solve on the arrays' device.
+
+    ``arrays`` is the `pack_lp_arrays` dict.  Returns the padded
+    `LPSolutionBatch` -- nothing is unpadded here.
+    """
+    # The smooth gradient's products must be full f32, as in the reference.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ins = [arrays[k] for k in LP_ARRAY_NAMES]
+    B, Mp = ins[0].shape[:2]
+    if B == 0 or Mp == 0:
+        # Degenerate bucket: nothing to iterate on.
+        zeros = lambda *s: torch.zeros(s, device=ins[0].device)  # noqa: E731
+        return LPSolutionBatch(
+            completion=zeros(B, Mp), y=zeros(B, Mp, Mp), objective=zeros(B),
+            method="subgradient_batch", iterations=iters,
+        )
+    best_Y, T_best, best_F = _subgradient_run_batch(*ins, iters=iters)
+    return LPSolutionBatch(
+        completion=T_best, y=best_Y, objective=best_F,
+        method="subgradient_batch", iterations=iters,
+    )
+
+
+def solve_subgradient_batch(
+    instances: Sequence[CoflowInstance],
+    iters: int = 3000,
+    device: str | torch.device = "cuda",
+) -> list[LPSolution]:
+    """Solve the ordering LP for a whole ensemble in one batched loop.
+
+    List-in/list-out wrapper over `pack_lp_arrays` ->
+    `solve_subgradient_batch_arrays` -> `LPSolutionBatch.unpack`.
+    """
+    instances = list(instances)
+    if not instances:
+        return []
+    arrays = pack_lp_arrays(instances, device=device)
+    batch = solve_subgradient_batch_arrays(arrays, iters=iters)
+    return batch.unpack([inst.num_coflows for inst in instances])

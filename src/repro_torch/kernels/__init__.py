@@ -1,0 +1,14 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch twin.
+
+* `repro_torch.kernels.pair_resolve` -- the calendar round reduction (from
+  ``repro/kernels/event_resolve``);
+* `repro_torch.kernels.port_stats` -- per-port loads and counts (from
+  ``repro/kernels/port_stats``);
+* `repro_torch.kernels.lp_terms` -- the LP's hard-max terms (from
+  ``repro/kernels/lp_terms``).
+
+Each wrapper launches its kernel for CUDA tensors, takes the plain twin for
+CPU tensors, and counts its launches in its module's ``LAUNCHES``.  The
+modules keep their functions' names, so import the functions from the
+modules.
+"""

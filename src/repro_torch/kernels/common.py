@@ -1,0 +1,130 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+The sources under ``repro_torch/csrc/`` are compiled by ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, at the first
+launch in a process, into ``repro_torch/_build/`` (git-ignored); the file
+name carries a digest of the sources and flags, so an edited source
+rebuilds.  The library is loaded with ``ctypes``: pointers and the stream
+go in as ``c_void_p``, and every C entry point returns
+``cudaGetLastError()``, which `launch` turns into an exception.
+
+Nothing here runs at import: the host has no ``nvcc``, and the wrappers
+only reach `launch` for CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+__all__ = ["launch", "library", "library_path", "stream_of", "BUILD_DIR"]
+
+_PKG = Path(__file__).resolve().parent.parent
+_CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+_SOURCES = ("pair_resolve.cu", "port_stats.cu", "lp_terms.cu")
+_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C signature (argument types) of each entry point; all return int.
+_SIGNATURES = {
+    "pair_resolve": (_P, _P, _P, _I, _I, _P),
+    "port_stats": (_P, _P, _P, _I, _I, _P),
+    "lp_terms_batch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+}
+
+_LIB: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    return str(Path(cuda_home) / "bin" / "nvcc")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for name in _SOURCES:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(target: Path) -> None:
+    """Compile every source in parallel (one ``nvcc -c`` each), then link
+    one shared library; the ptxas report lands in ``<target>.log``."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (name + ".o") for name in _SOURCES]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *_FLAGS, "-c", str(_CSRC / name), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for name, obj in zip(_SOURCES, objs)
+        ]
+        logs = [p.communicate()[0] for p in procs]
+        for name, proc, log in zip(_SOURCES, procs, logs):
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed on {name}:\n{log}")
+        lib_tmp = Path(tmp) / target.name
+        link = subprocess.run(
+            [nvcc, *_FLAGS, "-shared", *map(str, objs), "-o", str(lib_tmp)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        target.with_suffix(".log").write_text("".join(logs) + link.stdout)
+        os.replace(lib_tmp, target)
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (its ptxas report
+    beside it, with suffix ``.log``)."""
+    return BUILD_DIR / f"libkernels-{_digest()}.so"
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built from the sources on first use."""
+    global _LIB
+    if _LIB is None:
+        target = library_path()
+        if not target.exists():
+            _build(target)
+        lib = ctypes.CDLL(str(target))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """Raw handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point ``name``; raise if the launch was refused."""
+    lib = library()
+    err = getattr(lib, name)(*args)
+    if err:
+        msg = lib.repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")

@@ -1,0 +1,71 @@
+"""Concrete stages of the `ours` pipeline (Algorithm 1's three phases).
+
+Port of the array forms of `repro.pipeline.stages` that the ``ours``
+scheme runs: `LPOrder.order_batch`, `GreedyAllocate.allocate_batch_arrays`
+and `ListCircuit.schedule_batch_arrays` (both disciplines, the pair-space
+calendar).  The per-instance paths, the other order stages (WSPT, FIFO)
+and the other circuit stages (sequential, BvN, fluid) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.pipeline.batch_alloc import allocate_batch_arrays
+from repro_torch.pipeline.batch_circuit import schedule_batch_arrays
+
+__all__ = ["LPOrder", "GreedyAllocate", "ListCircuit"]
+
+
+def _masked_stable_order(key: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(B, Mp) stable argsort with padded slots pushed to the tail.
+
+    Row ``b`` restricted to its real prefix equals the per-instance
+    ``np.argsort(key_b, kind="stable")``: masking padded slots to +inf
+    cannot disturb the relative order of real entries.
+    """
+    return torch.argsort(torch.where(mask, key, math.inf), dim=1, stable=True)
+
+
+class LPOrder:
+    """LP-guided order: non-decreasing T~_m (Algorithm 1 Line 2)."""
+
+    kind = "lp"
+    needs_lp = True
+
+    def order_batch(self, ensemble, lp_completion: torch.Tensor) -> torch.Tensor:
+        """(B, Mp) padded orders from padded f64 LP completion times."""
+        return _masked_stable_order(lp_completion, ensemble.coflow_mask)
+
+
+class GreedyAllocate:
+    """Prefix-aware greedy allocation (Lines 3-15); tau-blind when
+    ``include_tau=False`` (LOAD-ONLY)."""
+
+    kind = "greedy"
+
+    def __init__(self, include_tau: bool = True):
+        self.include_tau = include_tau
+
+    def allocate_batch_arrays(self, ensemble, orders):
+        """`EnsembleBatch` + (B, Mp) orders -> `AllocationBatch`."""
+        return allocate_batch_arrays(ensemble, orders, include_tau=self.include_tau)
+
+
+class ListCircuit:
+    """Not-all-stop greedy port-matching list scheduler (Lines 16-30)."""
+
+    kind = "list"
+
+    def __init__(self, discipline: str = "greedy"):
+        if discipline not in ("reserving", "greedy"):
+            raise ValueError(f"unknown discipline {discipline!r}")
+        self.discipline = discipline
+
+    def schedule_batch_arrays(self, ensemble, alloc_batch):
+        """Padded tensors in, per-instance ``(schedules, ccts)`` out."""
+        return schedule_batch_arrays(
+            ensemble, alloc_batch, discipline=self.discipline
+        )

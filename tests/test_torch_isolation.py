@@ -1,0 +1,94 @@
+"""The port stands alone: no JAX, no JAX package, and no quiet CPU path.
+
+* No file of ``src/repro_torch`` nor ``chip_smoke.py`` imports ``jax`` or
+  the ``repro`` package (read from their syntax trees).
+* Importing ``repro_torch`` loads no ``jax`` module.
+* Entry points called with no ``device=`` raise when CUDA is absent.
+"""
+
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from repro.traffic.instances import random_instance
+from repro_torch.convert import from_reference
+
+# The suite runs several worker processes on few cores: one intra-op
+# thread each keeps PyTorch's small CPU ops from oversubscribing them.
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _forbidden(n)]
+        assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys, repro_torch.pipeline, repro_torch.experiments, "
+        "repro_torch.convert, repro_torch.traffic; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else [])
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], env=env, capture_output=True, text=True, timeout=240
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.core import lp
+    from repro_torch.experiments import solve_ensemble_lp
+    from repro_torch.pipeline import build_ensemble_batch, get_pipeline
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    inst = from_reference(random_instance(num_coflows=3, num_ports=2, seed=0), "cpu")
+    sol = lp.LPSolution(
+        completion=[1.0, 2.0, 3.0], precedence=None, objective=0.0, method="x"
+    )
+    calls = [
+        lambda: solve_ensemble_lp([inst]),
+        lambda: build_ensemble_batch([inst]),
+        lambda: get_pipeline("ours").run_batch([inst], [sol]),
+        lambda: lp.pack_lp_arrays([inst]),
+        lambda: lp.solve_subgradient_batch([inst]),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_from_reference_round_trips_fields():
+    ref = random_instance(num_coflows=4, num_ports=3, seed=2, release_span=5.0)
+    inst = from_reference(ref, "cpu")
+    for f in ("demands", "weights", "releases", "rates"):
+        assert getattr(inst, f).tobytes() == getattr(ref, f).tobytes()
+    assert inst.delta == ref.delta
+    with pytest.raises(TypeError, match="no counterpart"):
+        from_reference(object(), "cpu")

@@ -1,0 +1,200 @@
+"""The port's kernel wrappers: plain twins against the JAX package's
+oracles and interpret-mode Pallas kernels (CPU), kernels against their
+twins (CUDA, marked ``cuda``; they skip without a card).
+
+Tolerances:
+  * pair_resolve -- exact (integer ids, boolean mask);
+  * port_stats -- tau exact; rho bit-identical to host NumPy in f64 (the
+    twin sums in NumPy's order); against the f32 Pallas kernel and its
+    f32 oracle, rho agrees to 2N f32 roundings (2N * 2**-24 relative);
+  * lp_terms_batch -- `lp_terms.rtol(M)` relative: every summand is >= 0,
+    so any summation order is within (M-1) * 2**-24 of the exact value.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.core import lp as ref_lp
+from repro.core.coflow import port_stats as host_port_stats
+from repro.kernels.event_resolve.kernel import pair_resolve_pallas
+from repro.kernels.event_resolve.ref import pair_resolve_ref
+from repro.kernels.lp_terms.kernel import lp_terms_batch_pallas
+from repro.kernels.lp_terms.ref import lp_terms_batch_ref
+from repro.kernels.port_stats.kernel import port_stats_pallas
+from repro.kernels.port_stats.ref import port_stats_ref
+from repro.traffic.instances import random_instance
+from repro_torch.convert import from_reference
+from repro_torch.core import lp as port_lp
+from repro_torch.kernels import lp_terms as lt
+from repro_torch.kernels import pair_resolve as pr
+from repro_torch.kernels import port_stats as ps
+
+# The suite runs several worker processes on few cores: one intra-op
+# thread each keeps PyTorch's small CPU ops from oversubscribing them.
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _claims(G, N, seed, F=40):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, F, (G, N, N))
+    claim = np.where(rng.random((G, N, N)) < 0.6, ids, F).astype(np.int32)
+    idle = rng.random((G, N, N)) < 0.5
+    return claim, idle
+
+
+def _demands(M, N, seed):
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0.0, 100.0, (M, N, N)) * (rng.random((M, N, N)) < 0.5)
+    return d
+
+
+def _lp_inputs(B, M, P, seed):
+    rng = np.random.default_rng(seed)
+    Y = np.triu(rng.random((B, M, M)), 1)
+    X = Y + np.tril(1 - np.swapaxes(Y, 1, 2), -1) + np.eye(M)
+    return (
+        X.astype(np.float32),
+        rng.uniform(0, 50, (B, M, P)).astype(np.float32),
+        rng.integers(0, 10, (B, M, P)).astype(np.float32),
+        rng.uniform(0.01, 0.1, B).astype(np.float32),
+        rng.uniform(0.0, 3.0, B).astype(np.float32),
+    )
+
+
+# ---------------------------------------------------------------- pair_resolve
+@pytest.mark.parametrize("G,N", [(1, 1), (2, 5), (6, 9), (3, 16)])
+def test_pair_resolve_plain_matches_oracles(G, N):
+    claim, idle = _claims(G, N, G * 100 + N)
+    got = pr.pair_resolve(torch.from_numpy(claim), torch.from_numpy(idle))
+    assert got.dtype == torch.bool
+    cj = jnp.asarray(claim, jnp.float32)
+    ref = np.asarray(pair_resolve_ref(cj, jnp.asarray(idle)))
+    pallas = np.asarray(pair_resolve_pallas(cj, jnp.asarray(idle), interpret=True)) > 0.5
+    assert np.array_equal(got.numpy(), ref)
+    assert np.array_equal(got.numpy(), pallas)
+
+
+def test_pair_resolve_cpu_does_not_count_and_validates():
+    claim, idle = _claims(2, 4, 0)
+    before = pr.LAUNCHES
+    pr.pair_resolve(torch.from_numpy(claim), torch.from_numpy(idle))
+    assert pr.LAUNCHES == before
+    with pytest.raises(TypeError, match="int32"):
+        pr.pair_resolve(torch.from_numpy(claim).float(), torch.from_numpy(idle))
+    with pytest.raises(ValueError, match="idle must match"):
+        pr.pair_resolve(torch.from_numpy(claim), torch.from_numpy(idle[:1]))
+    with pytest.raises(ValueError, match=r"\(G, N, N\)"):
+        pr.pair_resolve(torch.zeros((2, 3, 4), dtype=torch.int32), torch.zeros((2, 3, 4), dtype=torch.bool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,N", [(96, 12), (8, 48), (3, 1)])
+def test_pair_resolve_kernel_matches_plain(cuda, G, N):
+    claim, idle = _claims(G, N, G + N, F=N * N)
+    c, i = torch.from_numpy(claim).to(cuda), torch.from_numpy(idle).to(cuda)
+    before = pr.LAUNCHES
+    got = pr.pair_resolve(c, i)
+    torch.cuda.synchronize()
+    assert pr.LAUNCHES == before + 1
+    assert torch.equal(got, pr.pair_resolve_plain(c, i))
+
+
+# ------------------------------------------------------------------ port_stats
+@pytest.mark.parametrize("M,N", [(3, 1), (4, 3), (5, 7), (2, 8), (3, 9), (6, 16), (2, 20), (1, 130)])
+def test_port_stats_plain_bit_identical_to_host(M, N):
+    d = _demands(M, N, M * 1000 + N)
+    rho, tau = ps.port_stats(torch.from_numpy(d))
+    rho_h, tau_h = host_port_stats(d)
+    assert rho.dtype == torch.float64 and tau.dtype == torch.int32
+    assert rho.numpy().tobytes() == rho_h.tobytes()
+    assert np.array_equal(tau.numpy(), tau_h)
+
+
+@pytest.mark.parametrize("M,N", [(4, 3), (3, 10), (2, 17)])
+def test_port_stats_plain_matches_pallas_and_oracle(M, N):
+    d = _demands(M, N, M + N)
+    rho, tau = ps.port_stats(torch.from_numpy(d))
+    tol = 2 * N * 2.0**-24
+    dj = jnp.asarray(d, jnp.float32)
+    for r, t in (port_stats_ref(dj), port_stats_pallas(dj, interpret=True)):
+        np.testing.assert_allclose(rho.numpy().astype(np.float32), np.asarray(r), rtol=tol)
+        assert np.array_equal(tau.numpy(), np.asarray(t).astype(np.int32))
+
+
+def test_port_stats_validates():
+    with pytest.raises(TypeError, match="float64"):
+        ps.port_stats(torch.zeros((2, 3, 3), dtype=torch.float32))
+    with pytest.raises(ValueError, match=r"\(M, N, N\)"):
+        ps.port_stats(torch.zeros((2, 3, 4), dtype=torch.float64))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N", [(3200, 10), (192, 48), (2, 168)])
+def test_port_stats_kernel_matches_plain(cuda, M, N):
+    d = torch.from_numpy(_demands(M, N, N)).to(cuda)
+    rho, tau = ps.port_stats(d)
+    torch.cuda.synchronize()
+    rho_p, tau_p = ps.port_stats_plain(d)
+    assert torch.equal(rho, rho_p) and torch.equal(tau, tau_p)
+
+
+# -------------------------------------------------------------- lp_terms_batch
+@pytest.mark.parametrize("B,M,P", [(1, 10, 8), (3, 20, 24), (2, 33, 5)])
+def test_lp_terms_batch_plain_matches_oracles(B, M, P):
+    args = _lp_inputs(B, M, P, B * 1000 + M + P)
+    got = lt.lp_terms_batch(*map(torch.from_numpy, args))
+    jargs = tuple(map(jnp.asarray, args))
+    tol = lt.rtol(M)
+    for ref in (lp_terms_batch_ref(*jargs), lp_terms_batch_pallas(*jargs, interpret=True)):
+        for a, r in zip(got, ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(r), rtol=tol, atol=0)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_hard_completion_masked_max_on_mixed_bucket(seed):
+    """Unmasked max over the zero-padded port width == the reference's
+    -inf-masked max, on a bucket mixing port counts (and coflow counts)."""
+    refs = [
+        random_instance(num_coflows=m, num_ports=n, num_cores=2, seed=seed * 10 + i,
+                        release_span=10.0 * (i % 2))
+        for i, (m, n) in enumerate([(6, 2), (9, 5), (4, 3)])
+    ]
+    arrays = ref_lp.pack_lp_arrays(refs, pad_coflows=12, pad_ports=12)
+    rng = np.random.default_rng(seed)
+    Y = np.triu(rng.random(arrays["Y0"].shape), 1).astype(np.float32)
+    names = ("p_rho", "p_tau", "releases", "inv_R", "delta_over_K", "coflow_mask", "port_mask")
+    import jax
+
+    want = jax.vmap(ref_lp._completion_from_Y_masked)(
+        jnp.asarray(Y), *(jnp.asarray(arrays[k]) for k in names)
+    )
+    t = from_reference(arrays, "cpu")
+    got = port_lp._completion_from_Y_masked(torch.from_numpy(Y), *(t[k] for k in names))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=lt.rtol(12), atol=0)
+
+
+def test_lp_terms_batch_validates():
+    args = list(map(torch.from_numpy, _lp_inputs(2, 4, 3, 0)))
+    with pytest.raises(ValueError, match="scales"):
+        lt.lp_terms_batch(*args[:3], args[3][:1], args[4])
+    with pytest.raises(TypeError, match="float32"):
+        lt.lp_terms_batch(args[0].double(), *args[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,M,P", [(32, 104, 24), (3, 33, 5), (2, 7, 128)])
+def test_lp_terms_batch_kernel_matches_plain(cuda, B, M, P):
+    args = [torch.from_numpy(a).to(cuda) for a in _lp_inputs(B, M, P, M)]
+    got = lt.lp_terms_batch(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, lt.lp_terms_batch_plain(*args)):
+        assert bool((a - b).abs().le(lt.rtol(M) * b.abs()).all())
