@@ -7,9 +7,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
 
 1. the card's name and power limit, and the kernels' build time;
 2. every kernel against its plain PyTorch twin on the card, at the main
-   path's shapes, with its time (CUDA events, median of 30 runs after
-   warm-up), the twin's, one library call's where one computes the same
-   function, and the least time the card could take (`bound_ms`);
+   path's shapes and at the widths of the whole trace (`pair_resolve` at
+   152 ports, both LP-terms kernels at 300 flat ports), with its time
+   (CUDA events, median of 30 runs after warm-up), the twin's, one library
+   call's where one computes the same function, the least time the card
+   could take (`bound_ms`) and the profiler's device-only time;
 3. the main path end to end on the paper's default setting (Sec. V-A:
    N=10, M=100, K=3, rates 10/20/30, delta=8, zero releases), 32 seeds:
    `solve_ensemble_lp` (3000 iterations), then
@@ -20,7 +22,20 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
 4. the same LP solutions through `run_batch` on the GPU and on the CPU:
    orders, core choices, establish and complete times and CCTs must be
    bit-identical; phases 3 and 4 again on 8 trace-release instances;
-5. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+5. per-instance ``ours`` solving its own LP, through
+   ``get_pipeline("ours", lp_method=...).run(inst)``: two paper-default
+   instances (seed 0, and seed 1 with trace releases) with the
+   subgradient LP (3000 iterations, the `lp_terms` kernel), and those two
+   plus a fig5-width instance (N = 32) and an fb_quick cell (48 coflows,
+   24 ports, K = 2, trace releases) with the exact LP (HiGHS); every
+   schedule validates, every weighted CCT is within (8K+1) times the
+   exact LP optimum, the subgradient objective lies within
+   [1 - 1e-4, 1.005] times it, the reserving runs' certificates hold
+   (`certify(...).ok()`) and the approximation ratio is within its bound
+   under both disciplines, `lp_terms` launched exactly
+   solves x (iterations + 2) times, and every run repeated on the CPU
+   with the same LP solution is bit-identical;
+6. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero as well without a CUDA device.
@@ -114,7 +129,87 @@ def random_claims(torch, G, N, gen, dev):
     return claim.to(dev).contiguous(), idle.to(dev).contiguous()
 
 
-def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays):
+def timed_call(torch, label, kernel, fn, plain, library, nbytes, ops, peak):
+    """Time one kernel call at one shape and log it: ``kernel_ms`` and
+    ``plain_ms`` (CUDA events), ``library_ms`` where one PyTorch call
+    computes the same function, the bound, and the profiler's device-only
+    time per launch.  Returns the numbers of the ``kernels`` line."""
+    b_ms, b_by = bound_ms(nbytes, ops, peak)
+    t = dict(
+        ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain),
+        library_ms=None if library is None else time_ms(torch, library),
+        bound_ms=b_ms, bound_by=b_by,
+    )
+    lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
+    log(f"kernel {label}: kernel_ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} "
+        f"library_ms {lib} bound_ms {b_ms:.6f} ({b_by})")
+    # The profiler now and then reports no device activity for a window
+    # this short: try up to three windows.
+    for _ in range(3):
+        _, kernels = profile_device(torch, lambda: [fn() for _ in range(30)])
+        mine = [v for k, v in kernels.items() if f"{kernel}_kernel(" in k]
+        if mine:
+            break
+    if mine:
+        total_us, count = mine[0]
+        log(f"kernel {label}: device-only {total_us / count:.2f} us per launch "
+            f"(profiler, {count} launches)")
+    else:
+        log(f"kernel {label}: device-only time not measured (the profiler "
+            f"saw no device activity)")
+    return t
+
+
+def lp_terms_bytes_ops(M, P, B=1):
+    """Bytes (inputs read once, outputs written once) and FMA operations
+    of the two LP-terms products."""
+    nbytes = 4 * (B * M * M + 2 * B * M * P) + 4 * 2 * B * M
+    return nbytes, 2 * (2 * B * M * M * P)
+
+
+def lp_terms_library(torch, X, p_rho, p_tau, inv_R, dok):
+    """The same function as one library product and row max per term."""
+    if X.dim() == 2:
+        Xt = X.T
+        return (Xt @ p_rho).amax(dim=1) * inv_R, (Xt @ p_tau).amax(dim=1) * dok
+    Xt = X.transpose(1, 2)
+    return (
+        torch.bmm(Xt, p_rho).amax(dim=2) * inv_R[:, None],
+        torch.bmm(Xt, p_tau).amax(dim=2) * dok[:, None],
+    )
+
+
+def check_lp_terms(label, got, want, M, rtol):
+    """Kernel within rtol(M) of its twin, relative (summands >= 0)."""
+    err = 0.0
+    for a, b in zip(got, want):
+        check(bool((a - b).abs().le(rtol * b.abs()).all()),
+              f"{label} outside rtol {rtol}")
+        err = max(err, float((a - b).abs().max()))
+    log(f"{label}: within rtol {rtol:.3g}, max abs err {err:.3g}")
+    return err
+
+
+def single_lp_args(torch, inst, seed):
+    """One instance's `lp_terms` operands on the card: X~ from its warm
+    start perturbed into the box, its port stats, its scales."""
+    from repro_torch.core import lp
+
+    dev = torch.device("cuda")
+    ((rho, tau),) = lp.instance_port_stats([inst], dev)
+    w = torch.from_numpy(inst.weights).to(dev)
+    Y0 = lp._warm_start_Y0(w, lp.global_lower_bound(inst, rho))
+    g = torch.Generator().manual_seed(seed)
+    Y = torch.clamp(Y0 + 0.3 * torch.rand(Y0.shape, generator=g).to(dev), 0.0, 1.0)
+    return (
+        lp._precedence_X(Y).contiguous(), rho.to(torch.float32),
+        tau.to(torch.float32), 1.0 / inst.aggregate_rate,
+        inst.delta / inst.num_cores,
+    )
+
+
+def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays,
+                  wide_lp_arrays, single_insts):
     from repro_torch.core.lp import _precedence_X
     from repro_torch.kernels import lp_terms as lt
     from repro_torch.kernels import pair_resolve as pr
@@ -124,27 +219,36 @@ def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays):
     gen = torch.Generator().manual_seed(0)
     rows = []
 
-    # pair_resolve: exact.
-    for G, N in ((96, 12), (8, 48)):
+    # pair_resolve: exact, up to the widened 152 ports (150 + the quantum).
+    for G, N in ((96, 12), (8, 48), (8, 152)):
         claim, idle = random_claims(torch, G, N, gen, dev)
         got = pr.pair_resolve(claim, idle)
         torch.cuda.synchronize()
         want = pr.pair_resolve_plain(claim, idle)
         check(torch.equal(got, want), f"pair_resolve ({G},{N},{N}) != plain")
         log(f"pair_resolve ({G},{N},{N}): exact match, {int(want.sum())} starts")
+        if N == 152:
+            timed_call(
+                torch, f"pair_resolve ({G},{N},{N})", "pair_resolve",
+                lambda: pr.pair_resolve(claim, idle),
+                lambda: pr.pair_resolve_plain(claim, idle), None,
+                G * N * N * (4 + 1 + 1), G * N * N * 5, F32_OPS_PER_S,
+            )
     claim, idle = random_claims(torch, 96, 12, gen, dev)
     G, N = 96, 12
-    nbytes = G * N * N * (4 + 1 + 1)
-    ops = G * N * N * 5  # row and column min, two compares, one and
-    b_ms, b_by = bound_ms(nbytes, ops, F32_OPS_PER_S)
     rows.append(dict(
         name="pair_resolve", route="cuda",
         source="src/repro_torch/csrc/pair_resolve.cu",
         replaces="src/repro/kernels/event_resolve/kernel.py:149",
         max_abs_err=0.0,
-        ms=time_ms(torch, lambda: pr.pair_resolve(claim, idle)),
-        plain_ms=time_ms(torch, lambda: pr.pair_resolve_plain(claim, idle)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        # Bytes: int32 claims and bool idle in, bool starts out; operations:
+        # row and column min, two compares, one and.
+        **timed_call(
+            torch, f"pair_resolve ({G},{N},{N})", "pair_resolve",
+            lambda: pr.pair_resolve(claim, idle),
+            lambda: pr.pair_resolve_plain(claim, idle), None,
+            G * N * N * (4 + 1 + 1), G * N * N * 5, F32_OPS_PER_S,
+        ),
     ))
 
     # port_stats: f64 sums in NumPy's order, so exact (0 ulp); tau exact.
@@ -166,88 +270,86 @@ def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays):
         check(np.array_equal(rho.cpu().numpy(), rho_np), "port_stats rho != NumPy")
         log(f"port_stats ({M},{N},{N}): rho and tau exact (plain and NumPy)")
     M, N = main_d.shape[:2]
-    nbytes = M * N * N * 8 + M * 2 * N * (8 + 4)
-    ops = M * N * N * 4  # row add, column add, two compares
-    b_ms, b_by = bound_ms(nbytes, ops, F64_OPS_PER_S)
     rows.append(dict(
         name="port_stats", route="cuda",
         source="src/repro_torch/csrc/port_stats.cu",
         replaces="src/repro/kernels/port_stats/kernel.py:37",
         max_abs_err=0.0,
-        ms=time_ms(torch, lambda: ps.port_stats(main_d)),
-        plain_ms=time_ms(torch, lambda: ps.port_stats_plain(main_d)),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(torch, lambda: (
-            main_d.sum(dim=2), main_d.sum(dim=1),
-            (main_d > 0).sum(dim=2), (main_d > 0).sum(dim=1),
-        )),
+        # Bytes: f64 demands in, f64 rho and int32 tau out; operations:
+        # row add, column add, two compares.
+        **timed_call(
+            torch, f"port_stats ({M},{N},{N})", "port_stats",
+            lambda: ps.port_stats(main_d), lambda: ps.port_stats_plain(main_d),
+            lambda: (main_d.sum(dim=2), main_d.sum(dim=1),
+                     (main_d > 0).sum(dim=2), (main_d > 0).sum(dim=1)),
+            M * N * N * 8 + M * 2 * N * (8 + 4), M * N * N * 4, F64_OPS_PER_S,
+        ),
     ))
 
-    # lp_terms_batch: f32 sums in different orders, stated tolerance.
+    # lp_terms_batch: f32 sums in different orders, stated tolerance; the
+    # paper bucket (the main path's shape), a mixed-N bucket and 300 ports.
     err = 0.0
-    main_args = None
-    for label, arrays in (("paper bucket", ens_lp_arrays), ("mixed-N bucket", mixed_lp_arrays)):
+    batch_args = {}
+    for label, arrays in (("paper bucket", ens_lp_arrays),
+                          ("mixed-N bucket", mixed_lp_arrays),
+                          ("wide bucket", wide_lp_arrays)):
         g = torch.Generator().manual_seed(7)
         Y = arrays["Y0"] + 0.3 * torch.rand(arrays["Y0"].shape, generator=g).to(dev)
         X = _precedence_X(torch.clamp(Y, 0.0, 1.0), arrays["coflow_mask"]).contiguous()
         args = (X, arrays["p_rho"], arrays["p_tau"], arrays["inv_R"], arrays["delta_over_K"])
         got = lt.lp_terms_batch(*args)
         torch.cuda.synchronize()
-        want = lt.lp_terms_batch_plain(*args)
-        M = X.shape[1]
-        label_err = 0.0
-        for a, b in zip(got, want):
-            check(bool((a - b).abs().le(lt.rtol(M) * b.abs()).all()),
-                  f"lp_terms_batch {label} outside rtol {lt.rtol(M)}")
-            label_err = max(label_err, float((a - b).abs().max()))
-        err = max(err, label_err)
-        log(f"lp_terms_batch {label} {tuple(X.shape)} P={args[1].shape[2]}: "
-            f"within rtol {lt.rtol(M):.3g}, max abs err {label_err:.3g}")
-        if main_args is None:
-            main_args = args
-    X, p_rho, p_tau, inv_R, dok = main_args
-    B, M, _ = X.shape
-    P = p_rho.shape[2]
-    nbytes = 4 * (B * M * M + 2 * B * M * P + 2 * B) + 4 * 2 * B * M
-    ops = 2 * (2 * B * M * M * P)
-    b_ms, b_by = bound_ms(nbytes, ops, F32_OPS_PER_S)
-
-    def library():
-        Xt = X.transpose(1, 2)
-        return (
-            torch.bmm(Xt, p_rho).amax(dim=2) * inv_R[:, None],
-            torch.bmm(Xt, p_tau).amax(dim=2) * dok[:, None],
+        B, M, _ = X.shape
+        err = max(err, check_lp_terms(
+            f"lp_terms_batch {label} B={B} M={M} P={args[1].shape[2]}",
+            got, lt.lp_terms_batch_plain(*args), M, lt.rtol(M),
+        ))
+        batch_args[label] = args
+    for label in ("wide bucket", "paper bucket"):  # the main path's last
+        args = batch_args[label]
+        B, M, P = args[1].shape
+        t = timed_call(
+            torch, f"lp_terms_batch {label} (B={B}, M={M}, P={P})", "lp_terms_batch",
+            lambda: lt.lp_terms_batch(*args), lambda: lt.lp_terms_batch_plain(*args),
+            lambda: lp_terms_library(torch, *args),
+            *lp_terms_bytes_ops(M, P, B), F32_OPS_PER_S,
         )
-
     rows.append(dict(
         name="lp_terms_batch", route="cuda",
         source="src/repro_torch/csrc/lp_terms.cu",
         replaces="src/repro/kernels/lp_terms/kernel.py:101",
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: lt.lp_terms_batch(*main_args)),
-        plain_ms=time_ms(torch, lambda: lt.lp_terms_batch_plain(*main_args)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(torch, library),
+        max_abs_err=err, **t,
     ))
-    launches = dict(
-        pair_resolve=lambda: pr.pair_resolve(claim, idle),
-        port_stats=lambda: ps.port_stats(main_d),
-        lp_terms_batch=lambda: lt.lp_terms_batch(*main_args),
-    )
-    for r in rows:
-        log(f"kernel {r['name']}: kernel_ms {r['ms']:.4f} plain_ms "
-            f"{r['plain_ms']:.4f} library_ms {r['library_ms']} bound_ms "
-            f"{r['bound_ms']:.6f} ({r['bound_by']})")
-        _, kernels = profile_device(
-            torch, lambda: [launches[r["name"]]() for _ in range(30)]
+
+    # lp_terms: one instance, scalar scales; the paper instance (the main
+    # path's shape), a small one and the whole trace's (526, 300).
+    err = 0.0
+    single = {}
+    for label, inst in single_insts:
+        args = single_lp_args(torch, inst, seed=len(single))
+        got = lt.lp_terms(*args)
+        torch.cuda.synchronize()
+        M, P = args[1].shape
+        err = max(err, check_lp_terms(
+            f"lp_terms {label} (M={M}, P={P})", got, lt.lp_terms_plain(*args),
+            M, lt.rtol(M),
+        ))
+        single[label] = args
+    for label in reversed(list(single)):  # the main path's shape last
+        args = single[label]
+        M, P = args[1].shape
+        t = timed_call(
+            torch, f"lp_terms {label} (M={M}, P={P})", "lp_terms",
+            lambda: lt.lp_terms(*args), lambda: lt.lp_terms_plain(*args),
+            lambda: lp_terms_library(torch, *args),
+            *lp_terms_bytes_ops(M, P), F32_OPS_PER_S,
         )
-        mine = [v for k, v in kernels.items() if f"{r['name']}_kernel" in k]
-        if mine:
-            total_us, count = mine[0]
-            log(f"kernel {r['name']}: device-only {total_us / count:.2f} us "
-                f"per launch (profiler, {count} launches)")
-        else:
-            log(f"kernel {r['name']}: device-only time not measured "
-                f"(the profiler saw no device activity)")
+    rows.append(dict(
+        name="lp_terms", route="cuda",
+        source="src/repro_torch/csrc/lp_terms.cu",
+        replaces="src/repro/kernels/lp_terms/kernel.py:183",
+        max_abs_err=err, **t,
+    ))
     return rows
 
 
@@ -257,20 +359,24 @@ def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays):
 
 
 def counters():
+    """Kernel name -> (module, name of its launch counter)."""
     from repro_torch.kernels import lp_terms, pair_resolve, port_stats
 
     return dict(
-        port_stats=port_stats, lp_terms_batch=lp_terms, pair_resolve=pair_resolve
+        port_stats=(port_stats, "LAUNCHES"),
+        lp_terms_batch=(lp_terms, "LAUNCHES"),
+        lp_terms=(lp_terms, "SINGLE_LAUNCHES"),
+        pair_resolve=(pair_resolve, "LAUNCHES"),
     )
 
 
 def reset_counts():
-    for mod in counters().values():
-        mod.LAUNCHES = 0
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
 
 
 def read_counts():
-    return {name: mod.LAUNCHES for name, mod in counters().items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
 
 
 def phase_end_to_end(torch, label, instances):
@@ -320,6 +426,9 @@ def phase_end_to_end(torch, label, instances):
     check(counts["pair_resolve"] == rounds > 0,
           f"{label}: pair_resolve launched {counts['pair_resolve']} times, "
           f"expected {rounds} (one per calendar round)")
+    check(counts["lp_terms"] == 0,
+          f"{label}: lp_terms launched {counts['lp_terms']} times on the "
+          f"batched path, expected 0")
     log(f"{label}: {len(instances)} instances validated under both "
         f"disciplines; weighted CCT / LP objective (greedy) min "
         f"{min(ratios):.4f} max {max(ratios):.4f}; bound 8K+1 = "
@@ -380,6 +489,22 @@ def stage_times(torch, label, instances):
     return times
 
 
+def check_same_schedule(ctx, g, c):
+    """Two `ScheduleResult`s bit-identical: order, core of each flow,
+    prefix bounds, establish and complete times, CCTs."""
+    check(np.array_equal(g.order, c.order), f"{ctx}: orders differ")
+    check(np.array_equal(g.allocation.core, c.allocation.core),
+          f"{ctx}: core choices differ")
+    check(np.array_equal(g.allocation.prefix_lb, c.allocation.prefix_lb),
+          f"{ctx}: prefix bounds differ")
+    for k, (sg, sc) in enumerate(zip(g.core_schedules, c.core_schedules)):
+        check(np.array_equal(sg.establish, sc.establish),
+              f"{ctx} core {k}: establish times differ")
+        check(np.array_equal(sg.complete, sc.complete),
+              f"{ctx} core {k}: complete times differ")
+    check(np.array_equal(g.ccts, c.ccts), f"{ctx}: CCTs differ")
+
+
 def phase_parity(label, instances, sols):
     """Injected LP: GPU and CPU runs must agree bit for bit."""
     from repro_torch.pipeline import get_pipeline
@@ -389,20 +514,113 @@ def phase_parity(label, instances, sols):
         gpu = pipe.run_batch(instances, sols, validate=True, device="cuda")
         cpu = pipe.run_batch(instances, sols, validate=True, device="cpu")
         for b, (g, c) in enumerate(zip(gpu, cpu)):
-            ctx = f"{label} {d} instance {b}"
-            check(np.array_equal(g.order, c.order), f"{ctx}: orders differ")
-            check(np.array_equal(g.allocation.core, c.allocation.core),
-                  f"{ctx}: core choices differ")
-            check(np.array_equal(g.allocation.prefix_lb, c.allocation.prefix_lb),
-                  f"{ctx}: prefix bounds differ")
-            for k, (sg, sc) in enumerate(zip(g.core_schedules, c.core_schedules)):
-                check(np.array_equal(sg.establish, sc.establish),
-                      f"{ctx} core {k}: establish times differ")
-                check(np.array_equal(sg.complete, sc.complete),
-                      f"{ctx} core {k}: complete times differ")
-            check(np.array_equal(g.ccts, c.ccts), f"{ctx}: CCTs differ")
+            check_same_schedule(f"{label} {d} instance {b}", g, c)
     log(f"{label}: GPU and CPU runs with injected LP bit-identical "
         f"(orders, cores, establish/complete, CCTs; both disciplines)")
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: per-instance ours solving its own LP
+# ---------------------------------------------------------------------------
+
+
+def phase_per_instance(torch, subgradient_insts, exact_insts):
+    """`Pipeline.run` per instance, the LP solved inside it: the
+    subgradient solver on the card (the `lp_terms` kernel) and HiGHS on
+    the host.  Each instance is solved once, under the first discipline;
+    the second discipline's run is given that solution."""
+    from repro_torch.core.theory import certify
+    from repro_torch.pipeline import batch_circuit, get_pipeline
+
+    def run(inst, discipline, lp_method="exact", sol=None):
+        pipe = get_pipeline("ours", discipline=discipline, lp_method=lp_method,
+                            lp_iters=LP_ITERS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = pipe.run(inst, lp_solution=sol, validate=True)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def timing(label, what, res, wall):
+        log(f"per-instance {label}: run with {what} {wall:.4f} s, of which "
+            f"allocation + calendar {res.wall_time_s:.4f} s and LP solve + "
+            f"ensemble build + order {wall - res.wall_time_s:.4f} s")
+
+    reset_counts()
+    batch_circuit.ROUNDS = 0
+    runs = []  # (label, LP method, instance, discipline, result)
+    for label, inst in subgradient_insts:
+        res, wall = run(inst, "greedy", "subgradient")
+        timing(label, f"subgradient LP ({LP_ITERS} iterations)", res, wall)
+        runs.append((label, "subgradient", inst, "greedy", res))
+        res, _ = run(inst, "reserving", sol=res.lp)
+        runs.append((label, "subgradient", inst, "reserving", res))
+    for label, inst in exact_insts:
+        res, wall = run(inst, "reserving", "exact")
+        timing(label, "exact LP (HiGHS)", res, wall)
+        runs.append((label, "exact", inst, "reserving", res))
+        res, wall = run(inst, "greedy", sol=res.lp)
+        timing(label, "the exact LP given", res, wall)
+        runs.append((label, "exact", inst, "greedy", res))
+    counts = read_counts()
+    rounds = batch_circuit.ROUNDS
+
+    exact = {label: res.lp for label, m, _, _, res in runs if m == "exact"}
+    for label, method, inst, d, res in runs:
+        ctx = f"per-instance {label} {method} {d}"
+        opt = exact[label].objective
+        limit = (8 * inst.num_cores + 1) * opt
+        check(np.isfinite(res.ccts).all() and res.ccts.shape == (inst.num_coflows,),
+              f"{ctx}: bad CCT vector")
+        check(res.total_weighted_cct <= limit,
+              f"{ctx}: weighted CCT {res.total_weighted_cct} > (8K+1) x exact LP {limit}")
+        if method == "subgradient":
+            gap = res.lp.objective / opt
+            check(1 - 1e-4 <= gap <= 1.005,
+                  f"{ctx}: subgradient objective {res.lp.objective} is {gap} x "
+                  f"the exact optimum {opt}, outside [1 - 1e-4, 1.005]")
+            log(f"{ctx}: subgradient objective / exact optimum {gap:.6f}; "
+                f"weighted CCT / exact LP {res.total_weighted_cct / opt:.4f}")
+            continue
+        rep = certify(inst, res.order, res.lp.completion, res.allocation, res.ccts)
+        check(rep.approx_ratio <= rep.bound,
+              f"{ctx}: approx ratio {rep.approx_ratio} > bound {rep.bound}")
+        if d == "reserving":
+            check(rep.ok(), f"{ctx}: certificate fails: {rep}")
+        log(f"{ctx}: approx ratio {rep.approx_ratio:.4f} (bound {rep.bound}); "
+            f"certificate ok() {rep.ok()}; Lemma 5 factor {rep.lemma5_factor:.3f}")
+
+    n_solves = len(subgradient_insts)
+    expect_lp = n_solves * (LP_ITERS + 2)
+    # One port_stats launch per subgradient solve and per run's ensemble
+    # build (one instance, one port count).
+    expect_ps = n_solves + len(runs)
+    check(counts["lp_terms"] == expect_lp,
+          f"per-instance: lp_terms launched {counts['lp_terms']} times, "
+          f"expected {expect_lp}")
+    check(counts["lp_terms_batch"] == 0,
+          f"per-instance: lp_terms_batch launched {counts['lp_terms_batch']} times, "
+          f"expected 0")
+    check(counts["port_stats"] == expect_ps,
+          f"per-instance: port_stats launched {counts['port_stats']} times, "
+          f"expected {expect_ps}")
+    check(counts["pair_resolve"] == rounds > 0,
+          f"per-instance: pair_resolve launched {counts['pair_resolve']} times, "
+          f"expected {rounds} (one per calendar round)")
+    log(f"per-instance: launches {json.dumps(counts)} (lp_terms expected "
+        f"{expect_lp} = {n_solves} solves x ({LP_ITERS} steps + start + "
+        f"result); port_stats expected {expect_ps} = {n_solves} solves + "
+        f"{len(runs)} runs; pair_resolve expected {rounds} = calendar rounds)")
+
+    # The same LP solutions on the CPU: bit-identical schedules.
+    for label, method, inst, d, res in runs:
+        cpu = get_pipeline("ours", discipline=d).run(
+            inst, lp_solution=res.lp, validate=True, device="cpu"
+        )
+        check_same_schedule(f"per-instance {label} {method} {d}", res, cpu)
+    log(f"per-instance: {len(runs)} runs validated; GPU and CPU runs with the "
+        f"same LP solution bit-identical (orders, cores, establish/complete, CCTs)")
+    return counts
 
 
 def main() -> int:
@@ -434,6 +652,10 @@ def main() -> int:
     paper = [paper_default_instance(seed=s) for s in SEEDS]
     trace = [sample_instance(seed=s, release="trace") for s in TRACE_SEEDS]
     mixed = [sample_instance(num_ports=n, num_coflows=40, seed=n) for n in (4, 6, 8, 10)]
+    wide = [sample_instance(num_ports=150, num_coflows=64, seed=s) for s in range(4)]
+    # The whole Facebook-like trace on 150 ports (the reference's fb_full).
+    fb_full = sample_instance(num_coflows=526, num_ports=150, rates=(10.0,),
+                              release="trace", seed=0)
 
     # Phase 2: kernels against their plain twins.
     from repro_torch.experiments.ensemble import bucket_shape
@@ -443,6 +665,10 @@ def main() -> int:
         np.concatenate([inst.demands for inst in paper]),
         pack_lp_arrays(paper, pad_coflows=Mp, pad_ports=Pp),
         pack_lp_arrays(mixed, pad_coflows=40, pad_ports=24),
+        pack_lp_arrays(wide),
+        [("paper", paper[0]),
+         ("small", sample_instance(num_ports=3, num_coflows=37, seed=37)),
+         ("fb_full", fb_full)],
     )
 
     # Phases 3 and 4: the main path, then GPU/CPU parity, on both ensembles.
@@ -452,7 +678,22 @@ def main() -> int:
     trace_sols, _ = phase_end_to_end(torch, "trace releases", trace)
     phase_parity("trace releases", trace, trace_sols)
 
-    # Phase 5: the kernels line, then the result.
+    # Phase 5: per-instance ours, each run solving its own LP.
+    paper_1 = ("paper seed 0", paper[0])
+    trace_1 = ("trace seed 1", sample_instance(seed=1, release="trace"))
+    single_counts = phase_per_instance(
+        torch,
+        [paper_1, trace_1],
+        [paper_1, trace_1,
+         ("fig5 N=32", sample_instance(num_ports=32, seed=0)),
+         ("fb_quick K=2", sample_instance(num_coflows=48, num_ports=24,
+                                          rates=(10.0, 20.0), release="trace",
+                                          seed=0))],
+    )
+
+    # Phase 6: the kernels line (each kernel's launches on its main path),
+    # then the result.
+    counts["lp_terms"] = single_counts["lp_terms"]
     for r in rows:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,52 +1,63 @@
-"""Batched ordering LP of the K-core OCS problem (paper Sec. IV-A2).
+"""Ordering LP of the K-core OCS problem (paper Sec. IV-A2).
 
-Port of the batched part of `repro.core.lp`.  Variables: completion times
-T_m and pairwise precedences x_{m,m'} in [0, 1] with x_{m,m'} + x_{m',m} = 1;
-per coflow m and port p
+Port of `repro.core.lp`.  Variables: completion times T_m and pairwise
+precedences x_{m,m'} in [0, 1] with x_{m,m'} + x_{m',m} = 1; per coflow m
+and port p
 
   transmission (Eq. 4):     T_m >= (1/R) ( rho_{m,p} + sum_{m'!=m} rho_{m',p} x_{m',m} )
   reconfiguration (Eq. 5):  T_m >= (delta/K) ( tau_{m,p} + sum_{m'!=m} tau_{m',p} x_{m',m} )
   release (Eq. 6):          T_m >= a_m
 
-and the objective min sum_m w_m T_m.  The ensemble solver pads a bucket of
-instances to one shape and runs projected Adam on the temperature-annealed
-smoothed objective, batched over the leading member axis (a Python loop in
-place of ``lax.scan``, a written-out batch axis in place of ``vmap``):
+and the objective min sum_m w_m T_m.  Three solvers:
 
-  * the smooth annealed-logsumexp gradient is autograd over `torch.bmm`
-    (the JAX package leaves that product to XLA, outside any kernel);
-  * the hard-max objective of every step (best-so-far tracking, the start
-    and the returned T) is the `lp_terms_batch` kernel, then a max with
-    the releases.
+  * `solve_exact` -- SciPy/HiGHS on the host, on the reduced LP
+    (x_{m',m} = 1 - x_{m,m'} for m < m' eliminated): the reference's
+    NumPy code, the same HiGHS call on the same arrays.
+  * `solve_subgradient` -- one instance: projected Adam on the
+    temperature-annealed smoothed objective (a Python loop in place of
+    ``lax.scan``), on the device.
+  * `solve_subgradient_batch` -- the same iteration for a bucket of
+    instances padded to one shape, batched over the leading member axis
+    (a written-out batch axis in place of ``vmap``).
 
-Matrix products run in full f32: TF32 is switched off where the LP runs
-(`solve_subgradient_batch_arrays`).  `solve_exact` (HiGHS) is not ported
-yet; the tests take it from the JAX package.
+In both subgradient solvers the smooth annealed-logsumexp gradient is
+autograd over plain matrix products (the JAX package leaves that product
+to XLA, outside any kernel), and the hard-max objective of every step
+(best-so-far tracking, the start and the returned T) is a kernel --
+`lp_terms` for one instance, `lp_terms_batch` for a bucket -- then a max
+with the releases.  Matrix products run in full f32: TF32 is switched off
+where the solvers run.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Sequence
+from typing import Callable, Sequence
 
 import numpy as np
+import scipy.sparse as sp
 import torch
+from scipy.optimize import linprog
 
+from repro_torch.core import coflow
 from repro_torch.core.coflow import CoflowInstance
 from repro_torch.device import resolve_device
-from repro_torch.kernels.lp_terms import lp_terms_batch
+from repro_torch.kernels.lp_terms import lp_terms, lp_terms_batch
 from repro_torch.kernels.port_stats import port_stats
 
 __all__ = [
     "LPSolution",
     "LPSolutionBatch",
+    "solve_exact",
+    "solve_subgradient",
     "pack_lp_arrays",
     "solve_subgradient_batch",
     "solve_subgradient_batch_arrays",
 ]
 
-#: Solver inputs of `pack_lp_arrays`, in `_subgradient_run_batch` order.
+#: Solver inputs of `pack_lp_arrays`, in `solve_subgradient_batch_arrays` order.
 LP_ARRAY_NAMES = (
     "Y0", "p_rho", "p_tau", "weights", "releases", "inv_R",
     "delta_over_K", "coflow_mask", "port_mask",
@@ -118,6 +129,97 @@ class LPSolutionBatch:
             )
             for b, M in enumerate(num_coflows)
         ]
+
+
+# ---------------------------------------------------------------------------
+# Exact solver (HiGHS, host)
+# ---------------------------------------------------------------------------
+
+
+def _pair_index(m: int):
+    """Map (a, b), a < b -> flat pair id; returns (ia, ib, P)."""
+    ia, ib = np.triu_indices(m, k=1)
+    return ia, ib, ia.shape[0]
+
+
+def solve_exact(instance: CoflowInstance) -> LPSolution:
+    """Solve the ordering LP exactly with SciPy's HiGHS backend (host).
+
+    Reduced variables: z = [T_1..T_M, y_1..y_P] with y_{(a,b)} = x_{a,b} for
+    a < b (so x_{b,a} = 1 - y_{(a,b)}).  Constraint rows (<= form):
+
+      -T_m + (1/R) [ sum_{m'<m} rho_{m',p} y_{(m',m)}
+                     - sum_{m'>m} rho_{m',p} y_{(m,m')} ]
+          <= -(1/R) [ rho_{m,p} + sum_{m'>m} rho_{m',p} ]
+
+    and the analogous tau rows with delta/K.  Release handled via bounds.
+    The rows, their order and the HiGHS call are the reference's, so the
+    solution is too.
+    """
+    M, N = instance.num_coflows, instance.num_ports
+    K = instance.num_cores
+    R = instance.aggregate_rate
+    delta = instance.delta
+    rho, tau = coflow.port_stats(instance.demands)
+    tau = tau.astype(np.float64)
+    ia, ib, P = _pair_index(M)
+    # Dense pair-id lookup (M, M) for the strict upper triangle.
+    pair_id = np.full((M, M), -1, dtype=np.int64)
+    pair_id[ia, ib] = np.arange(P)
+
+    rows, cols, vals, rhs = [], [], [], []
+
+    def add_block(stats: np.ndarray, coef: float) -> None:
+        """Append M*2N constraint rows (one per coflow m and port p)."""
+        for m in range(M):
+            # y columns: pairs (m', m) with m' < m get +coef*stats[m',p];
+            # pairs (m, m') with m' > m get -coef*stats[m',p].
+            lower = np.arange(0, m)
+            upper = np.arange(m + 1, M)
+            for p in range(2 * N):
+                r = len(rhs)
+                rows.append(r)
+                cols.append(m)
+                vals.append(-1.0)
+                base = stats[m, p] + stats[upper, p].sum() if upper.size else stats[m, p]
+                rhs.append(-coef * base)
+                for others, pid, sign in (
+                    (lower, pair_id[lower, m], 1.0),
+                    (upper, pair_id[m, upper], -1.0),
+                ):
+                    if not others.size:
+                        continue
+                    nz = stats[others, p] != 0
+                    if nz.any():
+                        rows.extend([r] * int(nz.sum()))
+                        cols.extend((M + pid[nz]).tolist())
+                        vals.extend((sign * coef * stats[others[nz], p]).tolist())
+
+    add_block(rho, 1.0 / R)
+    if delta > 0:
+        add_block(tau, delta / K)
+
+    A = sp.csr_matrix(
+        (np.asarray(vals), (np.asarray(rows), np.asarray(cols))),
+        shape=(len(rhs), M + P),
+    )
+    c = np.concatenate([instance.weights, np.zeros(P)])
+    bounds = [(float(a), None) for a in instance.releases] + [(0.0, 1.0)] * P
+    res = linprog(c, A_ub=A, b_ub=np.asarray(rhs), bounds=bounds, method="highs")
+    if not res.success:
+        raise RuntimeError(f"ordering LP failed: {res.message}")
+    T = res.x[:M]
+    y = res.x[M:]
+    x = np.zeros((M, M))
+    x[ia, ib] = y
+    x[ib, ia] = 1.0 - y
+    return LPSolution(
+        completion=T,
+        precedence=x,
+        objective=float(res.fun),
+        method="exact",
+        iterations=int(res.nit) if res.nit is not None else 0,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -246,109 +348,161 @@ def pack_lp_arrays(
 
 
 # ---------------------------------------------------------------------------
-# Batched projected-subgradient solver
+# Projected-subgradient solvers
 # ---------------------------------------------------------------------------
 
 
-def _precedence_X(Y: torch.Tensor, coflow_mask: torch.Tensor) -> torch.Tensor:
-    """X~ (B, Mp, Mp): X[a, b] = Y[a, b] (a < b), 1 - Y[b, a] (a > b), diag
-    1 (folding the coflow's own stats into the product), padded coflow
-    rows and columns zeroed."""
-    M = Y.shape[1]
+def _precedence_X(
+    Y: torch.Tensor, coflow_mask: torch.Tensor | None = None
+) -> torch.Tensor:
+    """X~ (..., M, M): X[a, b] = Y[a, b] (a < b), 1 - Y[b, a] (a > b), diag
+    1 (folding the coflow's own stats into the product); with a
+    ``coflow_mask`` (..., M), padded coflow rows and columns zeroed."""
+    M = Y.shape[-1]
     ones = torch.ones((M, M), dtype=torch.bool, device=Y.device)
     iu = torch.triu(ones, 1)
     il = torch.tril(ones, -1)
-    X = torch.where(iu, Y, 0.0) + torch.where(il, 1.0 - Y.transpose(1, 2), 0.0)
+    X = torch.where(iu, Y, 0.0) + torch.where(il, 1.0 - Y.transpose(-1, -2), 0.0)
     X = X + torch.eye(M, dtype=Y.dtype, device=Y.device)
+    if coflow_mask is None:
+        return X
     cm = coflow_mask.to(Y.dtype)
-    return X * (cm[:, :, None] * cm[:, None, :])
+    return X * (cm[..., :, None] * cm[..., None, :])
 
 
-def _completion_from_Y_masked(
+def _completion_from_Y(
     Y: torch.Tensor,
     p_rho: torch.Tensor,
     p_tau: torch.Tensor,
     releases: torch.Tensor,
-    inv_R: torch.Tensor,
-    delta_over_K: torch.Tensor,
-    coflow_mask: torch.Tensor,
-    port_mask: torch.Tensor,
+    inv_R,
+    delta_over_K,
+    coflow_mask: torch.Tensor | None = None,
+    port_mask: torch.Tensor | None = None,
     temp: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """Shape-padded T_m(Y), (B, Mp).
+    """T_m(Y) -- optimal completion values for fixed precedences.
 
-    Hard (``temp=None``): the `lp_terms_batch` kernel's scaled row maxima,
-    then a max with the releases -- the reference's -inf-masked max over
-    [load, rec, release] (padded ports hold zeros, real loads are >= 0).
-    Smooth: the temperature-scaled logsumexp over the same columns, padded
-    ports masked to -inf, through `torch.bmm` so autograd differentiates it.
+    One instance: Y (M, M), float scales, no masks -> (M,).  A padded
+    bucket: Y (B, Mp, Mp), per-member scales (B,) and the coflow and port
+    masks -> (B, Mp).
+
+    Hard (``temp=None``): the scaled row maxima of the `lp_terms` kernel
+    (one instance) or the `lp_terms_batch` kernel (a bucket), then a max
+    with the releases -- the reference's max over [load, rec, release]
+    (padded ports hold zeros, real loads are >= 0).  Smooth: the
+    temperature-scaled logsumexp over the same columns, padded ports masked
+    to -inf, through a matrix product so autograd differentiates it.
     """
+    batched = Y.dim() == 3
     X = _precedence_X(Y, coflow_mask)
     if temp is None:
-        load, rec = lp_terms_batch(X, p_rho, p_tau, inv_R, delta_over_K)
+        kernel = lp_terms_batch if batched else lp_terms
+        load, rec = kernel(X, p_rho, p_tau, inv_R, delta_over_K)
         return torch.maximum(torch.maximum(load, rec), releases)
-    Xt = X.transpose(1, 2)
-    load = torch.bmm(Xt, p_rho) * inv_R[:, None, None]
-    rec = torch.bmm(Xt, p_tau) * delta_over_K[:, None, None]
-    stacked = torch.cat([load, rec, releases[:, :, None]], dim=2)
-    col_mask = torch.cat(
-        [port_mask, port_mask, torch.ones_like(port_mask[:, :1])], dim=1
-    )
-    t = temp[:, None, None]
-    z = torch.where(col_mask[:, None, :], stacked / t, -math.inf)
-    return temp[:, None] * torch.logsumexp(z, dim=2)
+    t = temp
+    if batched:
+        inv_R, delta_over_K = inv_R[:, None, None], delta_over_K[:, None, None]
+        t = temp[:, None, None]
+    Xt = X.transpose(-1, -2)
+    load = (Xt @ p_rho) * inv_R
+    rec = (Xt @ p_tau) * delta_over_K
+    z = torch.cat([load, rec, releases[..., None]], dim=-1) / t
+    if port_mask is not None:
+        col_mask = torch.cat(
+            [port_mask, port_mask, torch.ones_like(port_mask[:, :1])], dim=1
+        )
+        z = torch.where(col_mask[:, None, :], z, -math.inf)
+    return temp[..., None] * torch.logsumexp(z, dim=-1)
 
 
-def _subgradient_run_batch(
+def _adam_step(Y, m, v, g, t: int, lr: float):
+    """One projected Adam step of the reference's update."""
+    m = 0.9 * m + 0.1 * g
+    v = 0.999 * v + 0.001 * g * g
+    mh = m / (1.0 - 0.9 ** (t + 1.0))
+    vh = v / (1.0 - 0.999 ** (t + 1.0))
+    return torch.clamp(Y - lr * mh / (torch.sqrt(vh) + 1e-8), 0.0, 1.0), m, v
+
+
+def _subgradient_run(
     Y0: torch.Tensor,
-    p_rho: torch.Tensor,
-    p_tau: torch.Tensor,
     weights: torch.Tensor,
-    releases: torch.Tensor,
-    inv_R: torch.Tensor,
-    delta_over_K: torch.Tensor,
-    coflow_mask: torch.Tensor,
-    port_mask: torch.Tensor,
+    completion: Callable[..., torch.Tensor],
     *,
     iters: int,
     lr: float = 0.05,
 ):
-    """Ensemble projected Adam: the whole batch advances in lockstep.
+    """Projected Adam on the temperature-annealed smoothed objective.
 
-    Instances are independent, so the gradient of the summed smooth
-    objective is the stack of per-instance gradients, and Adam is
-    elementwise.  Per-member best-so-far is tracked under the true
-    piecewise-linear objective (one `lp_terms_batch` launch per step, plus
-    one for the start and one for the returned T).
+    ``completion(Y, temp=None)`` is `_completion_from_Y` bound to one
+    instance's or one bucket's statics; ``weights`` has Y0's leading axes
+    and its last axis.  Instances of a bucket are independent, so the
+    gradient of the summed smooth objective is the stack of per-instance
+    gradients, and Adam is elementwise: the bucket advances in lockstep.
+    The smoothing temperature decays geometrically from about the scale of
+    the objective spread to about 0; the best-so-far point is tracked under
+    the true piecewise-linear objective (one hard-terms kernel launch per
+    step, plus one for the start and one for the returned T), so the result
+    is never worse than the warm start.
     """
-    statics = (p_rho, p_tau, releases, inv_R, delta_over_K, coflow_mask, port_mask)
-
-    def hard(Y):
-        return _completion_from_Y_masked(Y, *statics)
-
-    T0 = hard(Y0)
-    temp0 = torch.clamp(T0.amax(dim=1) * 0.05, min=1e-3)
+    T0 = completion(Y0)
+    temp0 = torch.clamp(T0.amax(dim=-1) * 0.05, min=1e-3)
     Y = Y0
     m = torch.zeros_like(Y0)
     v = torch.zeros_like(Y0)
     best_Y = Y0
-    best_F = (weights * T0).sum(dim=1)
+    best_F = (weights * T0).sum(dim=-1)
     for t in range(iters):
-        temps = temp0 * math.exp(-4.0 * t / iters) + 1e-3
+        temp = temp0 * math.exp(-4.0 * t / iters) + 1e-3
         with torch.enable_grad():
             Yg = Y.detach().requires_grad_(True)
-            smooth = _completion_from_Y_masked(Yg, *statics, temp=temps)
+            smooth = completion(Yg, temp=temp)
             (g,) = torch.autograd.grad((weights * smooth).sum(), Yg)
-        m = 0.9 * m + 0.1 * g
-        v = 0.999 * v + 0.001 * g * g
-        mh = m / (1.0 - 0.9 ** (t + 1.0))
-        vh = v / (1.0 - 0.999 ** (t + 1.0))
-        Y = torch.clamp(Y - lr * mh / (torch.sqrt(vh) + 1e-8), 0.0, 1.0)
-        F = (weights * hard(Y)).sum(dim=1)
+        Y, m, v = _adam_step(Y, m, v, g, t, lr)
+        F = (weights * completion(Y)).sum(dim=-1)
         better = F < best_F
-        best_Y = torch.where(better[:, None, None], Y, best_Y)
+        best_Y = torch.where(better[..., None, None], Y, best_Y)
         best_F = torch.where(better, F, best_F)
-    return best_Y, hard(best_Y), best_F
+    return best_Y, completion(best_Y), best_F
+
+
+def solve_subgradient(
+    instance: CoflowInstance,
+    iters: int = 3000,
+    device: str | torch.device = "cuda",
+) -> LPSolution:
+    """Projected-subgradient solve of one instance's ordering LP on
+    ``device``, from the weighted lower-bound warm start.
+
+    Returns a feasible solution (Y in the box, pair equalities by
+    construction): its objective upper-bounds the LP optimum, within about
+    1 % of HiGHS in practice.
+    """
+    device = resolve_device(device)
+    # The smooth gradient's products must be full f32, as in the reference.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ((rho, tau),) = instance_port_stats([instance], device)
+    weights = torch.from_numpy(instance.weights).to(device)
+    Y0 = _warm_start_Y0(weights, global_lower_bound(instance, rho))
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    completion = functools.partial(
+        _completion_from_Y, p_rho=rho.to(torch.float32),
+        p_tau=tau.to(torch.float32), releases=f32(instance.releases),
+        inv_R=float(1.0 / instance.aggregate_rate),
+        delta_over_K=float(instance.delta / instance.num_cores),
+    )
+    best_Y, T_best, best_F = _subgradient_run(
+        Y0, f32(weights), completion, iters=iters
+    )
+    return LPSolution(
+        completion=T_best.cpu().numpy().astype(np.float64),
+        precedence=_precedence_from_Y(best_Y.cpu().numpy().astype(np.float64)),
+        objective=float(best_F),
+        method="subgradient",
+        iterations=iters,
+    )
 
 
 def solve_subgradient_batch_arrays(
@@ -372,7 +526,14 @@ def solve_subgradient_batch_arrays(
             completion=zeros(B, Mp), y=zeros(B, Mp, Mp), objective=zeros(B),
             method="subgradient_batch", iterations=iters,
         )
-    best_Y, T_best, best_F = _subgradient_run_batch(*ins, iters=iters)
+    Y0, p_rho, p_tau, weights, releases, inv_R, delta_over_K, cm, pm = ins
+    completion = functools.partial(
+        _completion_from_Y, p_rho=p_rho, p_tau=p_tau, releases=releases,
+        inv_R=inv_R, delta_over_K=delta_over_K, coflow_mask=cm, port_mask=pm,
+    )
+    best_Y, T_best, best_F = _subgradient_run(
+        Y0, weights, completion, iters=iters
+    )
     return LPSolutionBatch(
         completion=T_best, y=best_Y, objective=best_F,
         method="subgradient_batch", iterations=iters,

@@ -16,8 +16,13 @@
 // row-min pass and a column-min pass by one thread per row/column, then
 // the start mask.  The TPU kernel carried ids as exact f32; here they stay
 // int32, so ids are exact up to 2**31 - 1 and no f32 guard is needed.
+// Above the default 48 KB of dynamic shared memory (N > 100) the first
+// launch on a device raises the kernel's limit to the device's opt-in
+// maximum, 227 KB on Hopper: (N*N + 2N) int32 fit for N <= 240.
 
 #include <cuda_runtime.h>
+
+#include <atomic>
 #include <climits>
 
 namespace {
@@ -54,12 +59,34 @@ __global__ void pair_resolve_kernel(const int* __restrict__ claim,
   }
 }
 
+constexpr int kMaxDevices = 16;
+
 }  // namespace
 
 extern "C" int pair_resolve(const void* claim, const void* idle, void* start,
                             int members, int n, void* stream) {
   const int threads = 128;
   const size_t smem = static_cast<size_t>(n * n + 2 * n) * sizeof(int);
+  if (smem > 48 * 1024) {
+    // Raise the kernel's opt-in limit to the device's maximum once per
+    // device: the attribute persists in the context, so later launches
+    // skip the host call, and it is never lowered.
+    static std::atomic<bool> raised[kMaxDevices];
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev >= kMaxDevices || !raised[dev].load()) {
+      int optin = 0;
+      err = cudaDeviceGetAttribute(
+          &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      err = cudaFuncSetAttribute(
+          pair_resolve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          optin);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      if (dev < kMaxDevices) raised[dev].store(true);
+    }
+  }
   pair_resolve_kernel<<<members, threads, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(claim), static_cast<const bool*>(idle),

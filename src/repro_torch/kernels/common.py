@@ -37,11 +37,13 @@ _FLAGS = (
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 #: C signature (argument types) of each entry point; all return int.
 _SIGNATURES = {
     "pair_resolve": (_P, _P, _P, _I, _I, _P),
     "port_stats": (_P, _P, _P, _I, _I, _P),
     "lp_terms_batch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "lp_terms": (_P, _P, _P, _F, _F, _P, _P, _I, _I, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -23,8 +23,9 @@ __all__ = ["pair_resolve", "pair_resolve_plain", "LAUNCHES"]
 #: Kernel launches in this process (CPU calls are not counted).
 LAUNCHES = 0
 
-# Shared memory holds the (N, N) claims plus two (N,) minima, in int32.
-_MAX_PORTS = 100
+# Shared memory holds the (N, N) claims plus two (N,) minima, in int32:
+# (N*N + 2N) * 4 bytes within the 227 KB (232,448 bytes) of a Hopper block.
+_MAX_PORTS = 240
 
 
 def pair_resolve_plain(claim: torch.Tensor, idle: torch.Tensor) -> torch.Tensor:

@@ -6,10 +6,13 @@ on the device, and ordering (`order_batch`), allocation
 (`allocate_batch_arrays`) and circuit scheduling (`schedule_batch_arrays`)
 hand padded tensors to each other; per-instance `ScheduleResult`s are
 materialized at the end.  LP solutions are supplied by the caller (from
-`repro_torch.experiments.solve_ensemble_lp`).
+`repro_torch.experiments.solve_ensemble_lp`) or, where one is missing,
+solved per instance by the order stage.  `Pipeline.run` is one instance
+through the same path: its allocation and calendar run on a one-member
+batch, which the reference holds bit-identical to its per-instance loop.
 
-Not ported yet: the per-instance ``run``, ``stage_cache``, ``mesh``
-sharding and ``refine`` (later slices).
+Not ported yet: ``stage_cache``, ``mesh`` sharding and ``refine`` (later
+slices); the methods take no such argument.
 """
 
 from __future__ import annotations
@@ -42,34 +45,51 @@ class Pipeline:
     allocate_stage: Any
     circuit_stage: Any
 
+    def run(
+        self,
+        instance: CoflowInstance,
+        lp_solution: LPSolution | None = None,
+        validate: bool = True,
+        device: str | torch.device = "cuda",
+    ) -> ScheduleResult:
+        """Run one instance end to end on ``device``.
+
+        Without ``lp_solution`` the order stage solves the instance's LP
+        (its ``method``).  The allocation and the calendar run as a
+        one-member `run_batch`; ``wall_time_s`` covers them, not the LP.
+        """
+        return self.run_batch(
+            [instance], [lp_solution], validate=validate, device=device
+        )[0]
+
     def run_batch(
         self,
         instances: Sequence[CoflowInstance],
-        lp_solutions: Sequence[LPSolution],
+        lp_solutions: Sequence[LPSolution | None] | None = None,
         validate: bool = True,
         device: str | torch.device = "cuda",
     ) -> list[ScheduleResult]:
         """Run a whole ensemble as one tensor pipeline on ``device``.
 
         ``lp_solutions`` holds one ordering-LP solution per instance (the
-        output of `solve_ensemble_lp`).  With ``validate`` every schedule is
-        checked by `validate_schedule`.  Each result's ``wall_time_s`` is
-        its share of the batched allocation and circuit stages.
+        output of `solve_ensemble_lp`); a missing one (``None``, or no list
+        at all) is solved per instance by the order stage.  With
+        ``validate`` every schedule is checked by `validate_schedule`.
+        Each result's ``wall_time_s`` is its share of the batched
+        allocation and circuit stages.
         """
         device = resolve_device(device)
         instances = list(instances)
         B = len(instances)
-        lp_solutions = list(lp_solutions)
+        lp_solutions = [None] * B if lp_solutions is None else list(lp_solutions)
         if len(lp_solutions) != B:
             raise ValueError("lp_solutions length mismatch")
-        if any(sol is None for sol in lp_solutions):
-            raise ValueError(
-                "run_batch needs an LP solution per instance (solve them "
-                "with solve_ensemble_lp); per-instance LP solves are not "
-                "ported"
-            )
         if B == 0:
             return []
+        lp_solutions = [
+            self.order_stage.order(inst, sol, device=device)[1]
+            for inst, sol in zip(instances, lp_solutions)
+        ]
         ensemble = build_ensemble_batch(instances, device=device)
         Ms = ensemble.num_coflows
 
@@ -108,11 +128,19 @@ class Pipeline:
         return results
 
 
-def build_pipeline(spec: SchemeSpec, *, discipline: str = "greedy") -> Pipeline:
+def build_pipeline(
+    spec: SchemeSpec,
+    *,
+    discipline: str = "greedy",
+    lp_method: str = "exact",
+    lp_iters: int = 3000,
+) -> Pipeline:
     """Materialize a `SchemeSpec` into an executable `Pipeline`.
 
     ``discipline`` applies to list-scheduler circuits whose spec leaves it
-    open (the spec's own pin wins).
+    open (the spec's own pin wins); ``lp_method`` (``"exact"`` or
+    ``"subgradient"``) and ``lp_iters`` configure the LP order stage when
+    it has to solve for itself.
     """
     if spec.order != "lp":
         raise ValueError(f"order stage kind {spec.order!r} is not ported")
@@ -120,7 +148,7 @@ def build_pipeline(spec: SchemeSpec, *, discipline: str = "greedy") -> Pipeline:
         raise ValueError(f"circuit stage kind {spec.circuit!r} is not ported")
     return Pipeline(
         spec=spec,
-        order_stage=st.LPOrder(),
+        order_stage=st.LPOrder(lp_method, lp_iters),
         allocate_stage=st.GreedyAllocate(include_tau=spec.include_tau),
         circuit_stage=st.ListCircuit(spec.discipline or discipline),
     )

@@ -1,10 +1,12 @@
 """Concrete stages of the `ours` pipeline (Algorithm 1's three phases).
 
-Port of the array forms of `repro.pipeline.stages` that the ``ours``
-scheme runs: `LPOrder.order_batch`, `GreedyAllocate.allocate_batch_arrays`
-and `ListCircuit.schedule_batch_arrays` (both disciplines, the pair-space
-calendar).  The per-instance paths, the other order stages (WSPT, FIFO)
-and the other circuit stages (sequential, BvN, fluid) are not ported yet.
+Port of the stages of `repro.pipeline.stages` that the ``ours`` scheme
+runs: `LPOrder` (per instance, solving its own LP when none is given, and
+batched), `GreedyAllocate.allocate_batch_arrays` and
+`ListCircuit.schedule_batch_arrays` (both disciplines, the pair-space
+calendar).  Allocation and circuits run batched only: a single instance
+is a one-member batch.  The other order stages (WSPT, FIFO) and the other
+circuit stages (sequential, BvN, fluid) are not ported yet.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch.core.ordering import lp_guided_order
 from repro_torch.pipeline.batch_alloc import allocate_batch_arrays
 from repro_torch.pipeline.batch_circuit import schedule_batch_arrays
 
@@ -34,6 +37,21 @@ class LPOrder:
 
     kind = "lp"
     needs_lp = True
+
+    def __init__(self, method: str = "exact", iters: int = 3000):
+        self.method = method
+        self.iters = iters
+
+    def order(self, instance, lp_solution=None, device="cuda"):
+        """``(order, lp_solution)`` of one instance; without a given
+        solution, solves the LP (``method``; ``iters`` for the
+        subgradient solver on ``device``)."""
+        if lp_solution is None:
+            kwargs = {"iters": self.iters} if self.method == "subgradient" else {}
+            _, lp_solution = lp_guided_order(
+                instance, method=self.method, device=device, **kwargs
+            )
+        return lp_solution.order(), lp_solution
 
     def order_batch(self, ensemble, lp_completion: torch.Tensor) -> torch.Tensor:
         """(B, Mp) padded orders from padded f64 LP completion times."""

@@ -73,12 +73,27 @@ def test_own_lp_valid_and_within_bound(ensemble, discipline):
 
 
 def test_run_batch_needs_lp_solutions(ensemble):
+    """`run_batch` needs one LP solution slot per instance: a list of
+    another length is refused."""
     refs, sols = ensemble
     insts = [from_reference(r, "cpu") for r in refs]
     pipe = get_pipeline("ours")
     with pytest.raises(ValueError, match="length mismatch"):
         pipe.run_batch(insts, [], device="cpu")
-    with pytest.raises(ValueError, match="LP solution per instance"):
-        pipe.run_batch(insts, [None] * len(insts), device="cpu")
+    with pytest.raises(ValueError, match="length mismatch"):
+        pipe.run_batch(insts, [from_reference(s, "cpu") for s in sols[:-1]], device="cpu")
     assert pipe.run_batch([], [], device="cpu") == []
     assert list_schemes() == ("ours",)
+
+
+def test_run_batch_solves_missing_lp_solutions(ensemble):
+    """A missing solution is solved per instance by the order stage (here
+    the exact LP, so the results equal those with the solutions given)."""
+    refs, sols = ensemble
+    insts = [from_reference(r, "cpu") for r in refs]
+    pipe = get_pipeline("ours")
+    given = pipe.run_batch(insts, [from_reference(s, "cpu") for s in sols], device="cpu")
+    solved = pipe.run_batch(insts, [None] * len(insts), device="cpu")
+    for a, b in zip(solved, given):
+        assert a.lp.method == "exact"
+        assert a.ccts.tobytes() == b.ccts.tobytes()

@@ -45,10 +45,19 @@ def test_no_jax_or_reference_imports(path):
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
 
 
+def test_new_modules_are_checked():
+    """The per-instance LP, the LP-guided order and the certificate are
+    among the files the syntax check reads."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for mod in ("core/lp.py", "core/ordering.py", "core/lower_bounds.py", "core/theory.py"):
+        assert f"src/repro_torch/{mod}" in names
+
+
 def test_import_loads_no_jax():
     code = (
         "import sys, repro_torch.pipeline, repro_torch.experiments, "
-        "repro_torch.convert, repro_torch.traffic; "
+        "repro_torch.convert, repro_torch.traffic, repro_torch.core.ordering, "
+        "repro_torch.core.lower_bounds, repro_torch.core.theory; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -64,6 +73,7 @@ def test_import_loads_no_jax():
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.core import lp
+    from repro_torch.core.ordering import lp_guided_order
     from repro_torch.experiments import solve_ensemble_lp
     from repro_torch.pipeline import build_ensemble_batch, get_pipeline
 
@@ -78,6 +88,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: get_pipeline("ours").run_batch([inst], [sol]),
         lambda: lp.pack_lp_arrays([inst]),
         lambda: lp.solve_subgradient_batch([inst]),
+        lambda: lp.solve_subgradient(inst),
+        lambda: lp_guided_order(inst),
+        lambda: lp_guided_order(inst, method="subgradient"),
+        lambda: get_pipeline("ours").run(inst),
+        lambda: get_pipeline("ours").run(inst, sol),
+        lambda: get_pipeline("ours", lp_method="subgradient").run_batch([inst]),
+        lambda: get_pipeline("ours").order_stage.order(inst),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

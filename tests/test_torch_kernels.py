@@ -7,8 +7,9 @@ Tolerances:
   * port_stats -- tau exact; rho bit-identical to host NumPy in f64 (the
     twin sums in NumPy's order); against the f32 Pallas kernel and its
     f32 oracle, rho agrees to 2N f32 roundings (2N * 2**-24 relative);
-  * lp_terms_batch -- `lp_terms.rtol(M)` relative: every summand is >= 0,
-    so any summation order is within (M-1) * 2**-24 of the exact value.
+  * lp_terms_batch and lp_terms -- `lp_terms.rtol(M)` relative: every
+    summand is >= 0, so any summation order is within (M-1) * 2**-24 of
+    the exact value.
 """
 
 import numpy as np
@@ -97,7 +98,7 @@ def test_pair_resolve_cpu_does_not_count_and_validates():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,N", [(96, 12), (8, 48), (3, 1)])
+@pytest.mark.parametrize("G,N", [(96, 12), (8, 48), (3, 1), (8, 152), (2, 240)])
 def test_pair_resolve_kernel_matches_plain(cuda, G, N):
     claim, idle = _claims(G, N, G + N, F=N * N)
     c, i = torch.from_numpy(claim).to(cuda), torch.from_numpy(idle).to(cuda)
@@ -106,6 +107,13 @@ def test_pair_resolve_kernel_matches_plain(cuda, G, N):
     torch.cuda.synchronize()
     assert pr.LAUNCHES == before + 1
     assert torch.equal(got, pr.pair_resolve_plain(c, i))
+
+
+@pytest.mark.cuda
+def test_pair_resolve_kernel_refuses_past_its_shared_memory(cuda):
+    claim = torch.zeros((1, 241, 241), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="at most 240 ports"):
+        pr.pair_resolve(claim, torch.zeros_like(claim, dtype=torch.bool))
 
 
 # ------------------------------------------------------------------ port_stats
@@ -148,7 +156,7 @@ def test_port_stats_kernel_matches_plain(cuda, M, N):
 
 
 # -------------------------------------------------------------- lp_terms_batch
-@pytest.mark.parametrize("B,M,P", [(1, 10, 8), (3, 20, 24), (2, 33, 5)])
+@pytest.mark.parametrize("B,M,P", [(1, 10, 8), (3, 20, 24), (2, 33, 5), (2, 12, 129), (1, 9, 300)])
 def test_lp_terms_batch_plain_matches_oracles(B, M, P):
     args = _lp_inputs(B, M, P, B * 1000 + M + P)
     got = lt.lp_terms_batch(*map(torch.from_numpy, args))
@@ -178,7 +186,7 @@ def test_hard_completion_masked_max_on_mixed_bucket(seed):
         jnp.asarray(Y), *(jnp.asarray(arrays[k]) for k in names)
     )
     t = from_reference(arrays, "cpu")
-    got = port_lp._completion_from_Y_masked(torch.from_numpy(Y), *(t[k] for k in names))
+    got = port_lp._completion_from_Y(torch.from_numpy(Y), *(t[k] for k in names))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=lt.rtol(12), atol=0)
 
 
@@ -191,10 +199,30 @@ def test_lp_terms_batch_validates():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,M,P", [(32, 104, 24), (3, 33, 5), (2, 7, 128)])
+@pytest.mark.parametrize("B,M,P", [(32, 104, 24), (3, 33, 5), (2, 7, 128), (4, 64, 300), (2, 33, 129)])
 def test_lp_terms_batch_kernel_matches_plain(cuda, B, M, P):
     args = [torch.from_numpy(a).to(cuda) for a in _lp_inputs(B, M, P, M)]
     got = lt.lp_terms_batch(*args)
     torch.cuda.synchronize()
     for a, b in zip(got, lt.lp_terms_batch_plain(*args)):
         assert bool((a - b).abs().le(lt.rtol(M) * b.abs()).all())
+
+
+# -------------------------------------------------------------------- lp_terms
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,P", [(100, 20), (37, 6), (526, 300), (1, 1), (33, 129)])
+def test_lp_terms_kernel_matches_plain_and_batch(cuda, M, P):
+    """The single-instance kernel within rtol(M) of its twin, and
+    bit-identical to the batched kernel on a one-member batch (the two
+    share one device function)."""
+    X, rho, tau, inv_R, dok = (torch.from_numpy(a).to(cuda) for a in _lp_inputs(1, M, P, M))
+    args = (X[0], rho[0], tau[0], float(inv_R[0]), float(dok[0]))
+    before = (lt.SINGLE_LAUNCHES, lt.LAUNCHES)
+    got = lt.lp_terms(*args)
+    torch.cuda.synchronize()
+    assert (lt.SINGLE_LAUNCHES, lt.LAUNCHES) == (before[0] + 1, before[1])
+    for a, b in zip(got, lt.lp_terms_plain(*args)):
+        assert bool((a - b).abs().le(lt.rtol(M) * b.abs()).all())
+    batch = lt.lp_terms_batch(X, rho, tau, inv_R, dok)
+    for a, b in zip(got, batch):
+        assert torch.equal(a, b[0])
