@@ -35,7 +35,20 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    under both disciplines, `lp_terms` launched exactly
    solves x (iterations + 2) times, and every run repeated on the CPU
    with the same LP solution is bit-identical;
-6. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+6. serving ``gemma3-1b`` at full width (26 layers, d_model 1152, vocab
+   262144, head_dim 256, window 512; random weights from a seed) through
+   `repro_torch.launch.serve.serve`: 8 requests of 600 prompt tokens, 4
+   slots (2 waves), 16 new tokens each; every request gets its tokens,
+   every logit is finite, the `flash_attention` kernel launched exactly
+   waves x (1 + max_new) x layers = 884 times; one decode step after a
+   prefill of P - 1 tokens matches the teacher-forced forward over P
+   within 4 bf16 units of the largest logit; a reduced gemma3 in f32
+   serves identical tokens on the card and on the host, logits within
+   2e-4; one decode tick profiled.  The kernel phase (2) holds
+   `flash_attention` against its twin at the serving shapes (prefill
+   (4, 4, 600, 617, 256) and decode (4, 4, 1, 617, 256) at offset 600,
+   with and without the window) and at cases of the reference's sweep;
+7. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero as well without a CUDA device.
@@ -56,13 +69,17 @@ ROOT = Path(__file__).resolve().parent
 SEEDS = range(32)
 TRACE_SEEDS = range(8)
 LP_ITERS = 3000
+# The serving phase: gemma3-1b's default server shape, prompts past the
+# 512-token window.
+SERVE = dict(slots=4, requests=8, prompt_len=600, max_new=16, seed=0)
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the
-# non-tensor-core f32 and f64 rates.  32-bit integer compares are counted
-# against the f32 rate.
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, the
+# non-tensor-core f32 and f64 rates, and the dense bf16 tensor-core rate.
+# 32-bit integer compares are counted against the f32 rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 F64_OPS_PER_S = 34e12
+BF16_OPS_PER_S = 989e12
 
 
 def log(msg: str) -> None:
@@ -147,7 +164,8 @@ def timed_call(torch, label, kernel, fn, plain, library, nbytes, ops, peak):
     # this short: try up to three windows.
     for _ in range(3):
         _, kernels = profile_device(torch, lambda: [fn() for _ in range(30)])
-        mine = [v for k, v in kernels.items() if f"{kernel}_kernel(" in k]
+        mine = [v for k, v in kernels.items()
+                if f"{kernel}_kernel(" in k or f"{kernel}_kernel<" in k]
         if mine:
             break
     if mine:
@@ -353,6 +371,109 @@ def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays,
     return rows
 
 
+# The reference's sweep (tests/test_kernels.py ATTN_CASES), a subset:
+# B, Hq, Hkv, Sq, Skv, D, causal, window, q_offset.
+ATTN_SWEEP = [
+    (2, 4, 2, 256, 256, 64, True, None, 0),
+    (1, 2, 2, 256, 256, 64, True, 100, 0),
+    (1, 2, 1, 8, 512, 64, True, None, 504),
+    (1, 2, 2, 128, 128, 128, False, None, 0),
+    (1, 3, 1, 64, 320, 32, True, None, 256),
+    (2, 4, 2, 40, 57, 16, True, 16, 0),
+]
+
+
+def attention_mask(torch, Sq, Skv, causal, window, q_offset, dev):
+    """The (Sq, Skv) visibility mask of the kernel's arguments."""
+    qi = q_offset + torch.arange(Sq, device=dev)[:, None]
+    kj = torch.arange(Skv, device=dev)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= qi >= kj
+    if window is not None:
+        mask &= (qi - kj) < window
+    return mask
+
+
+def phase_flash_kernel(torch):
+    """`flash_attention` against its twin: f32 within 2e-5 (the reference
+    sweep's tolerance); bf16 within one bf16 rounding (2**-7 of the value
+    plus 1e-5), since both compute in f32 and round once.  Then the
+    serving shapes timed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(15)
+    serving = {
+        "prefill local": (4, 4, 1, 600, 617, 256, True, 512, 0),
+        "prefill global": (4, 4, 1, 600, 617, 256, True, None, 0),
+        "decode global": (4, 4, 1, 1, 617, 256, True, None, 600),
+        "decode local": (4, 4, 1, 1, 617, 256, True, 512, 600),
+    }
+    err = 0.0
+    inputs = {}
+    for label, case in [*serving.items(), *(("sweep", c) for c in ATTN_SWEEP)]:
+        B, Hq, Hkv, Sq, Skv, D, causal, window, off = case
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (
+                torch.randn(shape, generator=gen).to(dev, dtype)
+                for shape in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))
+            )
+            got = fa.flash_attention(q, k, v, causal, window, off)
+            torch.cuda.synchronize()
+            want = fa.flash_attention_plain(q, k, v, causal, window, off).float()
+            e = (got.float() - want).abs()
+            if dtype == torch.float32:
+                check(bool((e <= 2e-5).all()), f"flash_attention {label} {case} f32 "
+                      f"off by {float(e.max())}")
+            else:
+                check(bool((e <= 2**-7 * want.abs() + 1e-5).all()),
+                      f"flash_attention {label} {case} bf16 beyond one rounding")
+                err = max(err, float(e.max()))
+            log(f"flash_attention {label} {case} {str(dtype)[6:]}: max abs err "
+                f"{float(e.max()):.3g}")
+            if label in serving and dtype == torch.bfloat16:
+                inputs[label] = (q, k, v, case)
+    # The model hands the kernel (B, S, H, D) tensors viewed as (B, H, S, D).
+    q, k, v, case = inputs["prefill local"]
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    check(torch.equal(fa.flash_attention(*views, *case[6:]),
+                      fa.flash_attention(q, k, v, *case[6:])),
+          "flash_attention on strided views differs from contiguous inputs")
+    log("flash_attention: strided (B, S, H, D) views give the same bits")
+
+    t = None
+    for label in ("prefill global", "prefill local", "decode global", "decode local"):
+        q, k, v, case = inputs[label]
+        B, Hq, Hkv, Sq, Skv, D, causal, window, off = case
+        mask = attention_mask(torch, Sq, Skv, causal, window, off, dev)
+        # Bytes: q in and out once, each live key/value row once per kv
+        # head; operations: 2 products x 2 flops x D per live pair, at the
+        # bf16 tensor-core rate (the least time for bf16 work).
+        pairs = int(mask.sum())
+        live_rows = int(mask.any(dim=0).sum())
+        nbytes = 2 * (2 * B * Hq * Sq * D + 2 * B * Hkv * live_rows * D)
+        ops = 4 * D * pairs * B * Hq
+        t = timed_call(
+            torch, f"flash_attention {label} (B={B}, Hq={Hq}, Hkv={Hkv}, Sq={Sq}, "
+            f"Skv={Skv}, D={D}, window={window}, q_offset={off}, bf16)",
+            "flash_attention",
+            lambda: fa.flash_attention(q, k, v, causal, window, off),
+            lambda: fa.flash_attention_plain(q, k, v, causal, window, off),
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, enable_gqa=True),
+            nbytes, ops, BF16_OPS_PER_S,
+        )
+    # The row carries the most launched shape: a decode step of a local layer.
+    return dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/kernel.py:99",
+        max_abs_err=err, **t,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: the main path end to end, and GPU/CPU parity
 # ---------------------------------------------------------------------------
@@ -360,13 +481,14 @@ def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays,
 
 def counters():
     """Kernel name -> (module, name of its launch counter)."""
-    from repro_torch.kernels import lp_terms, pair_resolve, port_stats
+    from repro_torch.kernels import flash_attention, lp_terms, pair_resolve, port_stats
 
     return dict(
         port_stats=(port_stats, "LAUNCHES"),
         lp_terms_batch=(lp_terms, "LAUNCHES"),
         lp_terms=(lp_terms, "SINGLE_LAUNCHES"),
         pair_resolve=(pair_resolve, "LAUNCHES"),
+        flash_attention=(flash_attention, "LAUNCHES"),
     )
 
 
@@ -623,6 +745,148 @@ def phase_per_instance(torch, subgradient_insts, exact_insts):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: serving gemma3-1b at full width through the flash kernel
+# ---------------------------------------------------------------------------
+
+
+def bf16_units(torch, x):
+    """Spacing of bf16 values at the magnitude of ``x`` (2**-7 of the
+    power of two at or below it)."""
+    return 2.0 ** (int(torch.floor(torch.log2(x.abs().max().float()))) - 7)
+
+
+def phase_serving(torch):
+    """`serve` on gemma3-1b at full width, with launch counts, then the
+    teacher-forcing check, card against host on a reduced model, and one
+    profiled decode tick."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import build_model, param_bytes, param_count
+
+    cfg = get_arch("gemma3-1b")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SERVE["seed"]))
+    torch.cuda.synchronize()
+    log(f"serving {cfg.name}: {param_count(params)} parameters, "
+        f"{param_bytes(params) / 1e9:.3f} GB held (bf16 matrices, f32 norms), "
+        f"init {time.perf_counter() - t0:.2f} s")
+    # One warm-up wave (cuBLAS handles, allocator), outside the counted run.
+    serve(cfg, params, **{**SERVE, "requests": 1, "max_new": 1})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = serve(cfg, params, **SERVE)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    n_req, new = SERVE["requests"], SERVE["max_new"]
+    waves = -(-n_req // SERVE["slots"])
+    check((res.waves, res.ticks, res.tokens) == (waves, waves * new, n_req * new),
+          f"serve: waves/ticks/tokens {res.waves}/{res.ticks}/{res.tokens}")
+    for rid, toks in res.produced.items():
+        check(len(toks) == new and all(0 <= t < cfg.vocab_size for t in toks),
+              f"serve: request {rid} got {toks}")
+    for w, wave in enumerate(res.logits):
+        for lg in wave:
+            check(lg.shape[-1] == cfg.vocab_size and bool(torch.isfinite(lg).all()),
+                  f"serve: wave {w} logits not finite or of the wrong shape")
+    expect = res.waves * (1 + new) * cfg.num_layers
+    check(counts["flash_attention"] == expect,
+          f"serve: flash_attention launched {counts['flash_attention']} times, "
+          f"expected {expect} = waves x (1 + max_new) x layers")
+    others = {k: v for k, v in counts.items() if k != "flash_attention"}
+    check(not any(others.values()), f"serve: other kernels launched {others}")
+    ticks_ms = sorted(1e3 * t for t in res.tick_s)
+    log(f"serving {cfg.name}: {n_req} requests x {new} tokens, prompts of "
+        f"{SERVE['prompt_len']}, {SERVE['slots']} slots: {res.waves} waves, "
+        f"{res.ticks} ticks, {res.tokens} tokens in {res.seconds:.4f} s "
+        f"({res.tokens / res.seconds:.2f} tokens/s)")
+    log(f"serving {cfg.name}: prefill s per wave {[round(t, 4) for t in res.prefill_s]}; "
+        f"decode ms per tick median {statistics.median(ticks_ms):.3f} "
+        f"(min {ticks_ms[0]:.3f}, max {ticks_ms[-1]:.3f}); peak device memory "
+        f"{peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated)")
+    log(f"serving {cfg.name}: launches {json.dumps(counts)} (flash_attention "
+        f"expected {expect} = {res.waves} waves x (1 + {new}) x {cfg.num_layers} layers)")
+    log(f"serving {cfg.name}: greedy tokens of request 0: {res.produced[0]}")
+
+    # Decode after a prefill of P - 1 tokens against the teacher-forced
+    # forward over all P: cache writes and the kernel's q_offset.  bf16
+    # rounds at other places on the two routes (products of other shapes),
+    # so the bound is 4 bf16 units at the largest logit.
+    P = SERVE["prompt_len"]
+    rng = np.random.default_rng(SERVE["seed"] + 1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE["slots"], P))).cuda()
+    with torch.inference_mode():
+        full, _ = model.forward(params, {"tokens": tokens})
+        want = full[:, -1].float()
+        del full
+        cache = model.init_cache(SERVE["slots"], P)
+        _, cache = model.forward(params, {"tokens": tokens[:, : P - 1]}, cache=cache, pos=0)
+        got, _ = model.decode_step(params, cache, {"tokens": tokens[:, P - 1 :]}, P - 1)
+    diff = (got.float() - want).abs()
+    tol = 4 * bf16_units(torch, want)
+    check(bool((diff <= tol).all()),
+          f"teacher forcing: decode differs from forward by {float(diff.max())} > {tol}")
+    log(f"teacher forcing ({SERVE['slots']} x {P} tokens): decode vs forward max abs "
+        f"{float(diff.max()):.4g}, mean {float(diff.mean()):.4g}, bound {tol:.4g} "
+        f"(4 bf16 units at |logit| max {float(want.abs().max()):.4g}); argmax equal "
+        f"in {int((got.argmax(-1) == want.argmax(-1)).sum())} of {SERVE['slots']} rows")
+
+    # Card against host: a reduced gemma3 in f32, the same parameters.
+    small = get_arch("gemma3-1b").reduced(vocab_size=512, compute_dtype="float32")
+    host = build_model(small, "cpu")
+    p_cpu = host.init(torch.Generator().manual_seed(0))
+    p_gpu = build_model(small).cast(p_cpu)
+    kw = dict(slots=4, requests=8, prompt_len=40, max_new=8, seed=0)
+    on_card = serve(small, p_gpu, **kw)
+    on_host = serve(small, p_cpu, device="cpu", **kw)
+    check(on_card.produced == on_host.produced,
+          "card and host serve different greedy tokens (reduced gemma3, f32)")
+    worst = max(
+        float((a.cpu() - b).abs().max())
+        for wa, wb in zip(on_card.logits, on_host.logits) for a, b in zip(wa, wb)
+    )
+    check(worst <= 2e-4, f"card vs host logits differ by {worst} > 2e-4")
+    log(f"card vs host (reduced gemma3, f32, {kw['requests']} requests x "
+        f"{kw['max_new']} tokens, prompts of {kw['prompt_len']} past the window of "
+        f"{small.window_size}): identical greedy tokens, logits max abs diff {worst:.3g} "
+        f"(bound 2e-4)")
+
+    # One decode tick profiled, on a cache filled by a prefill of P tokens.
+    with torch.inference_mode():
+        cache = model.init_cache(SERVE["slots"], P + 1)
+        logits, cache = model.forward(params, {"tokens": tokens}, cache=cache, pos=0)
+        step = logits[:, -1].argmax(-1, keepdim=True)
+        del logits
+
+        def tick():
+            lg, _ = model.decode_step(params, cache, {"tokens": step}, P)
+            lg.argmax(-1).cpu()
+
+        tick()
+        wall, kernels = profile_device(torch, tick)
+    busy = sum(t for t, _ in kernels.values())
+    by = {"flash_attention": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
+    for name, (us, _) in kernels.items():
+        if "flash_attention_kernel" in name:
+            by["flash_attention"] += us
+        elif any(w in name.lower() for w in ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")):
+            by["matmul (cuBLAS)"] += us
+        else:
+            by["other"] += us
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]
+    log(f"profiled decode tick: wall {1e3 * wall:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms ({100 * busy / 1e6 / wall:.1f} %), "
+        f"{sum(c for _, c in kernels.values())} device kernels; by kind (ms): "
+        + json.dumps({k: round(v / 1e3, 4) for k, v in by.items()}))
+    log("profiled decode tick top: " + "; ".join(
+        f"{k[:70]} {t / 1e3:.4f} ms x{c}" for k, (t, c) in top))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -660,6 +924,8 @@ def main() -> int:
     # Phase 2: kernels against their plain twins.
     from repro_torch.experiments.ensemble import bucket_shape
     Mp, Pp = bucket_shape(paper[0])
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 is compared below
+    torch.backends.cudnn.allow_tf32 = False
     rows = phase_kernels(
         torch,
         np.concatenate([inst.demands for inst in paper]),
@@ -670,6 +936,7 @@ def main() -> int:
          ("small", sample_instance(num_ports=3, num_coflows=37, seed=37)),
          ("fb_full", fb_full)],
     )
+    rows.append(phase_flash_kernel(torch))
 
     # Phases 3 and 4: the main path, then GPU/CPU parity, on both ensembles.
     sols, counts = phase_end_to_end(torch, "paper default", paper)
@@ -691,9 +958,13 @@ def main() -> int:
                                           seed=0))],
     )
 
-    # Phase 6: the kernels line (each kernel's launches on its main path),
+    # Phase 6: serving gemma3-1b at full width.
+    serve_counts = phase_serving(torch)
+
+    # Phase 7: the kernels line (each kernel's launches on its main path),
     # then the result.
     counts["lp_terms"] = single_counts["lp_terms"]
+    counts["flash_attention"] = serve_counts["flash_attention"]
     for r in rows:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

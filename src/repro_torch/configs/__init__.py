@@ -1,0 +1,37 @@
+"""Architecture registry of the port: --arch <id> -> exact public config.
+
+Copies of `repro.configs` for the architectures whose layer kinds the
+port runs (global and sliding-window GQA attention with a dense gated
+FFN).  The other seven come with their layer kinds (ROADMAP.md, Queue 1).
+"""
+
+from repro_torch.configs import gemma3_1b, phi3_medium_14b, stablelm_1_6b
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec
+
+ARCHS: dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (stablelm_1_6b, phi3_medium_14b, gemma3_1b)
+}
+
+
+def get_arch(name: str) -> ModelConfig:
+    if name not in ARCHS:
+        raise KeyError(f"unknown arch {name!r}; available: {sorted(ARCHS)}")
+    return ARCHS[name]
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[str]:
+    """Shapes this arch runs; long_500k only for sub-quadratic archs."""
+    out = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.subquadratic:
+        out.append("long_500k")
+    return out
+
+
+__all__ = [
+    "ARCHS",
+    "get_arch",
+    "applicable_shapes",
+    "SHAPES",
+    "ShapeSpec",
+    "ModelConfig",
+]

@@ -1,9 +1,10 @@
 """Carry objects of the JAX package over into the port.
 
-This system has data where a model has weights: the tests hand both
-packages the same instances and LP solutions through `from_reference`.
-It reads the reference's objects by their fields only (NumPy arrays and
-floats) and imports nothing of the JAX package.
+The scheduler has data where a model has weights: the tests hand both
+packages the same instances and LP solutions through `from_reference`, and
+the same model weights through `params_from_reference`.  Both read the
+reference's objects by their fields only (NumPy arrays and floats) and
+import nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -13,12 +14,14 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.allocation import Allocation
 from repro_torch.core.coflow import CoflowInstance
 from repro_torch.core.lp import LP_ARRAY_NAMES, LPSolution
 from repro_torch.device import resolve_device
+from repro_torch.models.model import build_model
 
-__all__ = ["from_reference"]
+__all__ = ["from_reference", "params_from_reference"]
 
 
 def from_reference(obj: Any, device: str | torch.device) -> Any:
@@ -62,3 +65,34 @@ def from_reference(obj: Any, device: str | torch.device) -> Any:
             for k in LP_ARRAY_NAMES
         }
     raise TypeError(f"from_reference: no counterpart for {kind}")
+
+
+def params_from_reference(params: dict, cfg: ModelConfig, device: str | torch.device) -> dict:
+    """The port's per-layer parameters from the reference's parameter tree.
+
+    ``params`` is ``repro.models.model.build_model(cfg).init(key)``'s nested
+    dict, its leaves as arrays NumPy can read: layer ``i`` of a config with
+    a unit of ``u`` kinds repeated ``reps`` times sits at ``units[i % u]``,
+    row ``i // u`` of every stacked leaf, for ``i < reps * u``, and at
+    ``rem[i - reps * u]`` after that.  Matrices and the embedding are held
+    in the compute dtype, norms in f32, on ``device``.
+    """
+    model = build_model(cfg, device)
+    u = len(tuple(cfg.layer_unit))
+    reps = cfg.num_layers // u
+
+    def layer(i: int) -> dict:
+        if i < reps * u:
+            tree, pick = params["units"][i % u], lambda a: np.asarray(a)[i // u]
+        else:
+            tree, pick = params["rem"][i - reps * u], np.asarray
+        return {
+            blk: {name: torch.from_numpy(np.array(pick(a))) for name, a in p.items()}
+            for blk, p in tree.items()
+        }
+
+    return model.cast({
+        "layers": [layer(i) for i in range(cfg.num_layers)],
+        "final_norm": torch.from_numpy(np.array(params["final_norm"])),
+        "embed": torch.from_numpy(np.array(params["embed"])),
+    })

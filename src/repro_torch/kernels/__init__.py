@@ -5,7 +5,10 @@
 * `repro_torch.kernels.port_stats` -- per-port loads and counts (from
   ``repro/kernels/port_stats``);
 * `repro_torch.kernels.lp_terms` -- the LP's hard-max terms (from
-  ``repro/kernels/lp_terms``).
+  ``repro/kernels/lp_terms``);
+* `repro_torch.kernels.flash_attention` -- GQA attention with causal and
+  sliding-window masks, the serving path's kernel (from
+  ``repro/kernels/flash_attention``).
 
 Each wrapper launches its kernel for CUDA tensors, takes the plain twin for
 CPU tensors, and counts its launches in its module's ``LAUNCHES``.  The

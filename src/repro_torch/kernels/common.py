@@ -29,7 +29,7 @@ __all__ = ["launch", "library", "library_path", "stream_of", "BUILD_DIR"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_SOURCES = ("pair_resolve.cu", "port_stats.cu", "lp_terms.cu")
+_SOURCES = ("pair_resolve.cu", "port_stats.cu", "lp_terms.cu", "flash_attention.cu")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,12 +38,14 @@ _FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 #: C signature (argument types) of each entry point; all return int.
 _SIGNATURES = {
     "pair_resolve": (_P, _P, _P, _I, _I, _P),
     "port_stats": (_P, _P, _P, _I, _I, _P),
     "lp_terms_batch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "lp_terms": (_P, _P, _P, _F, _F, _P, _P, _I, _I, _P),
+    "flash_attention": (_P,) * 4 + (_I,) * 7 + (_L,) * 12 + (_I, _I, _I, _F, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -1,0 +1,142 @@
+"""Batched serving: wave-based batched decode (port of
+`repro.launch.serve`).
+
+Serves a model from a request queue: up to ``slots`` requests are packed
+into a batch per wave, prefilled together at position 0, then decoded in
+lockstep, one `Model.decode_step` per tick, for ``max_new`` ticks; the next
+wave refills the batch.  Greedy sampling (argmax of the compute-dtype
+logits).  Prompts come from ``np.random.default_rng(seed)`` in the
+reference's order, so both packages serve the same requests.
+
+Usage:
+  python -m repro_torch.launch.serve --arch gemma3-1b --requests 16 --max-new 32
+  python -m repro_torch.launch.serve --device cpu     # the host, plain twins
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.model import build_model
+
+__all__ = ["ServeResult", "serve", "main"]
+
+
+@dataclasses.dataclass
+class ServeResult:
+    """What `serve` returns.
+
+    ``produced`` maps request id to its generated tokens; ``logits`` holds,
+    per wave, the (n, V) compute-dtype logits of each greedy choice (the
+    prefill's last position, then each decode tick) on the serving device;
+    ``prefill_s`` and ``tick_s`` are host-clock seconds of each prefill and
+    each decode tick, each ending with the argmax copied to the host.
+    """
+
+    produced: dict[int, list[int]]
+    waves: int
+    ticks: int
+    tokens: int
+    seconds: float
+    prefill_s: list[float]
+    tick_s: list[float]
+    logits: list[list[torch.Tensor]]
+
+
+def serve(
+    cfg: ModelConfig,
+    params,
+    *,
+    slots: int,
+    requests: int,
+    prompt_len: int,
+    max_new: int,
+    seed: int,
+    device: str | torch.device = "cuda",
+) -> ServeResult:
+    """Serve ``requests`` random prompts of ``prompt_len`` tokens,
+    ``max_new`` greedy tokens each, ``slots`` at a time, on ``device``."""
+    if cfg.encoder_dim or cfg.num_codebooks:
+        raise NotImplementedError(
+            f"{cfg.name}: serving with encoder inputs or audio codebooks is not "
+            f"ported yet (ROADMAP.md, Queue 1: the remaining model families)"
+        )
+    model = build_model(cfg, resolve_device(device))
+    rng = np.random.default_rng(seed)
+    P = prompt_len
+    L = P + max_new + 1
+    queue = [
+        (i, rng.integers(0, cfg.vocab_size, (P,)).astype(np.int32))
+        for i in range(requests)
+    ]
+    produced: dict[int, list[int]] = {i: [] for i in range(requests)}
+    prefill_s, tick_s, logits_out = [], [], []
+
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        while queue:
+            wave = [queue.pop(0) for _ in range(min(slots, len(queue)))]
+            n = len(wave)
+            t = time.perf_counter()
+            tokens = torch.from_numpy(np.stack([p for _, p in wave])).to(model.device)
+            cache = model.init_cache(n, L)
+            logits, cache = model.forward(params, {"tokens": tokens}, cache=cache, pos=0)
+            step_logits = [logits[:, -1].clone()]  # not a view of all (n, P, V)
+            cur = step_logits[-1].argmax(dim=-1).cpu().numpy().astype(np.int32)
+            prefill_s.append(time.perf_counter() - t)
+            for k in range(max_new):
+                t = time.perf_counter()
+                for s, (rid, _) in enumerate(wave):
+                    produced[rid].append(int(cur[s]))
+                step = torch.from_numpy(cur.reshape(n, 1)).to(model.device)
+                logits, cache = model.decode_step(params, cache, {"tokens": step}, P + k)
+                step_logits.append(logits)
+                cur = logits.argmax(dim=-1).cpu().numpy().astype(np.int32)
+                tick_s.append(time.perf_counter() - t)
+            logits_out.append(step_logits)
+    seconds = time.perf_counter() - t0
+    return ServeResult(
+        produced=produced, waves=len(prefill_s), ticks=len(tick_s),
+        tokens=sum(len(v) for v in produced.values()), seconds=seconds,
+        prefill_s=prefill_s, tick_s=tick_s, logits=logits_out,
+    )
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma3-1b")
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    cfg = get_arch(args.arch).reduced(vocab_size=512)
+    model = build_model(cfg, args.device)
+    gen = torch.Generator(device=model.device).manual_seed(args.seed)
+    params = model.init(gen)
+    res = serve(
+        cfg, params, slots=args.slots, requests=args.requests,
+        prompt_len=args.prompt_len, max_new=args.max_new, seed=args.seed,
+        device=model.device,
+    )
+    print(
+        f"served {args.requests} requests / {res.tokens} tokens in "
+        f"{res.seconds:.2f}s ({res.tokens / max(res.seconds, 1e-9):.1f} tok/s, "
+        f"{res.waves} waves, {res.ticks} ticks, {args.slots} slots)"
+    )
+    return res.produced
+
+
+if __name__ == "__main__":
+    main()

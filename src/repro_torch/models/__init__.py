@@ -1,0 +1,10 @@
+"""Dense decoder models of the port (`repro.models`, the dense part).
+
+* `repro_torch.models.layers` -- RMSNorm, RoPE, GQA attention on the
+  flash kernel, the gated FFN;
+* `repro_torch.models.model` -- `build_model` and the `Model` it returns.
+"""
+
+from repro_torch.models.model import Model, build_model, param_bytes, param_count
+
+__all__ = ["Model", "build_model", "param_bytes", "param_count"]

@@ -1,0 +1,164 @@
+"""Model assembly (port of `repro.models.model` for dense decoders).
+
+A model is a stack of residual blocks described by ``cfg.layer_kinds``
+(gemma3 = 5 x "local" + 1 x "attn" repeating).  The reference groups layers
+into repeating units and runs ``lax.scan`` over stacked parameters to keep
+its compiled program small; the port runs eagerly, so layers are a Python
+loop over a per-layer parameter list (``params["layers"]``), and the cache
+is a per-layer list of ``{"k", "v"}``.
+
+The port runs the kinds "attn" (global) and "local" (sliding window) with
+the dense gated FFN.  Other kinds (MLA, mLSTM/sLSTM, RG-LRU, cross
+attention), mixtures of experts and the train path (``loss``) are not
+ported yet (ROADMAP.md, Queue 1): `build_model` raises for them.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+
+__all__ = ["Model", "build_model", "param_count", "param_bytes"]
+
+# Layer kinds the port runs.
+_PORTED_KINDS = ("attn", "local")
+
+
+class Model:
+    """A dense decoder on one device.  Built by `build_model`."""
+
+    def __init__(self, cfg: ModelConfig, device: torch.device):
+        self.cfg = cfg
+        self.device = device
+        self.dtype = getattr(torch, cfg.compute_dtype)
+        # The reference scales embeddings by a Python float in the compute
+        # dtype: the factor is rounded to that dtype first.
+        self._embed_scale = float(torch.tensor(cfg.d_model**0.5, dtype=self.dtype))
+
+    # ---------------------------------------------------------------- init
+    def init(self, generator: torch.Generator) -> dict[str, Any]:
+        """Random parameters from ``generator``, which must be on the
+        model's device: the reference's distributions (matrices N(0,
+        1/fan_in), embedding N(0, 0.02^2), norms zero), drawn in f32 and
+        held in the compute dtype (norms in f32)."""
+        if generator.device.type != self.device.type:
+            raise ValueError(
+                f"init: generator on {generator.device}, model on {self.device}"
+            )
+        cfg = self.cfg
+        layers = []
+        for _ in range(cfg.num_layers):
+            layers.append({"attn": L.attn_init(generator, cfg), "ffn": L.ffn_init(generator, cfg)})
+        params = {
+            "layers": layers,
+            "final_norm": torch.zeros(cfg.d_model, device=self.device),
+            "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model) * 0.02,
+        }
+        return self.cast(params)
+
+    def cast(self, params: dict[str, Any]) -> dict[str, Any]:
+        """Matrices and the embedding in the compute dtype, norm weights in
+        f32, all on the model's device."""
+        def one(t: torch.Tensor) -> torch.Tensor:
+            dtype = torch.float32 if t.dim() == 1 else self.dtype
+            return t.to(device=self.device, dtype=dtype)
+
+        return {
+            "layers": [
+                {blk: {name: one(t) for name, t in p.items()} for blk, p in layer.items()}
+                for layer in params["layers"]
+            ],
+            "final_norm": one(params["final_norm"]),
+            "embed": one(params["embed"]),
+        }
+
+    # ------------------------------------------------------------ backbone
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        return params["embed"][tokens] * self._embed_scale
+
+    def _head(self, params, x: torch.Tensor) -> torch.Tensor:
+        """Logits in the compute dtype, against the tied embedding."""
+        x = L.rms_norm(x, params["final_norm"])
+        return x @ params["embed"].T
+
+    def forward(self, params, batch, cache=None, pos: int = 0):
+        """batch['tokens']: (B, S) int.  Returns (logits (B, S, V), cache);
+        with a cache, K/V of positions pos .. pos + S - 1 are written into
+        it in place."""
+        cfg = self.cfg
+        tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
+        B, S = tokens.shape
+        x = self._embed(params, tokens)
+        positions = (pos + torch.arange(S, device=self.device))[None, :].expand(B, S)
+        for i, (kind, p) in enumerate(zip(cfg.layer_kinds, params["layers"])):
+            window = cfg.window_size if kind == "local" else None
+            delta, _ = L.attn_apply(
+                p["attn"], x, cfg, positions=positions,
+                cache=None if cache is None else cache[i], pos=pos, window=window,
+            )
+            x = x + delta
+            x = x + L.ffn_apply(p["ffn"], x, cfg)
+        return self._head(params, x), cache
+
+    def init_cache(self, batch: int, max_len: int) -> list[dict[str, torch.Tensor]]:
+        return [
+            L.attn_init_cache(self.cfg, batch, max_len, self.dtype, self.device)
+            for _ in range(self.cfg.num_layers)
+        ]
+
+    def prefill(self, params, batch):
+        tokens = batch["tokens"]
+        cache = self.init_cache(len(tokens), len(tokens[0]))
+        logits, cache = self.forward(params, batch, cache=cache, pos=0)
+        return logits[:, -1], cache
+
+    def decode_step(self, params, cache, batch, pos: int):
+        """batch['tokens']: (B, 1); pos: the new token's position."""
+        logits, cache = self.forward(params, batch, cache=cache, pos=pos)
+        return logits[:, 0], cache
+
+
+def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
+    """The port's model for ``cfg`` on ``device`` (the card by default)."""
+    device = resolve_device(device)
+    unported = sorted(set(cfg.layer_kinds) - set(_PORTED_KINDS))
+    if unported or cfg.num_experts or cfg.encoder_dim or cfg.num_codebooks:
+        what = ", ".join(
+            unported
+            + (["mixture of experts"] if cfg.num_experts else [])
+            + (["cross-attention conditioning"] if cfg.encoder_dim else [])
+            + (["audio codebooks"] if cfg.num_codebooks else [])
+        )
+        raise NotImplementedError(
+            f"{cfg.name}: {what} not ported yet (ROADMAP.md, Queue 1: the "
+            f"remaining model families)"
+        )
+    if cfg.d_ff <= 0:
+        raise NotImplementedError(f"{cfg.name}: blocks without an FFN are not ported")
+    return Model(cfg, device)
+
+
+def _leaves(params):
+    if isinstance(params, dict):
+        for v in params.values():
+            yield from _leaves(v)
+    elif isinstance(params, (list, tuple)):
+        for v in params:
+            yield from _leaves(v)
+    else:
+        yield params
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in _leaves(params))
+
+
+def param_bytes(params) -> int:
+    """Bytes as held: the port keeps matrices in the compute dtype, so this
+    is about half the reference's f32 figure under bf16."""
+    return sum(t.numel() * t.element_size() for t in _leaves(params))

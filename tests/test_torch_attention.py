@@ -1,0 +1,110 @@
+"""`repro_torch.kernels.flash_attention` on the host: the plain twin (which
+the wrapper takes for CPU tensors) against the reference's oracle
+``attention_ref`` and its interpret-mode Pallas kernel, over the
+reference's own sweep (`tests/test_kernels.py` ``ATTN_CASES``) plus a
+gemma3-shaped case (D = 256, one KV head for four query heads, sliding
+window, decode offset).  The kernel against the twin on the card is in
+`tests/test_torch_kernels.py` (marked ``cuda``).
+
+Tolerances, as in the reference's sweep: 2e-5 in f32 (summation order);
+3e-2 in bf16 (both sides round the f32 result to bf16, and the Pallas
+kernel's online softmax sums in another order).
+"""
+
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.kernels.flash_attention import attention_ref
+from repro.kernels.flash_attention import flash_attention as ref_flash_attention
+from repro_torch.kernels import flash_attention as fa
+
+# The suite runs several worker processes on few cores: one intra-op
+# thread each keeps PyTorch's small CPU ops from oversubscribing them.
+torch.set_num_threads(1)
+
+ATTN_CASES = [
+    # B, Hq, Hkv, Sq, Skv, D, causal, window, off  (the reference's sweep)
+    (2, 4, 2, 256, 256, 64, True, None, 0),
+    (1, 8, 1, 128, 128, 64, True, None, 0),
+    (1, 4, 4, 200, 200, 64, True, None, 0),
+    (1, 2, 2, 384, 384, 64, True, 128, 0),
+    (1, 2, 2, 256, 256, 64, True, 100, 0),
+    (1, 2, 1, 8, 512, 64, True, None, 504),
+    (1, 2, 2, 128, 128, 128, False, None, 0),
+    (1, 3, 1, 64, 320, 32, True, None, 256),
+    # gemma3's attention: D = 256, GQA group 4, window, queries mid-cache.
+    (2, 4, 1, 24, 80, 256, True, 32, 40),
+    (2, 4, 1, 1, 80, 256, True, 32, 70),
+]
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+
+
+def _inputs(case, dtype):
+    B, Hq, Hkv, Sq, Skv, D = case[:6]
+    rng = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    return (
+        rng.standard_normal((B, Hq, Sq, D)).astype(np.float32),
+        rng.standard_normal((B, Hkv, Skv, D)).astype(np.float32),
+        rng.standard_normal((B, Hkv, Skv, D)).astype(np.float32),
+    )
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+def _jax(a, dtype):
+    return jnp.asarray(a, getattr(jnp, dtype))
+
+
+@pytest.mark.parametrize("case", ATTN_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_matches_reference_and_pallas(case, dtype):
+    causal, window, off = case[6:]
+    q, k, v = _inputs(case, dtype)
+    got = fa.flash_attention(
+        *(_torch(a, dtype) for a in (q, k, v)), causal, window, off
+    )
+    assert got.dtype == getattr(torch, dtype)
+    assert got.shape == q.shape
+    got = got.to(torch.float32).numpy()
+    tol = TOL[dtype]
+    ins = [_jax(a, dtype) for a in (q, k, v)]
+    for want in (
+        attention_ref(*ins, causal, window, off),
+        ref_flash_attention(*ins, causal, window, off),  # Pallas, interpret mode
+    ):
+        np.testing.assert_allclose(
+            got, np.asarray(want, np.float32), rtol=tol, atol=tol
+        )
+
+
+def test_plain_takes_strided_views():
+    """The model hands the wrapper (B, S, H, D) tensors viewed as
+    (B, H, S, D): same result as contiguous copies."""
+    case = (2, 4, 1, 12, 30, 16, True, 8, 18)
+    q, k, v = (torch.from_numpy(a) for a in _inputs(case, "float32"))
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    assert not views[0].is_contiguous()
+    want = fa.flash_attention(q, k, v, True, 8, 18)
+    got = fa.flash_attention(*views, True, 8, 18)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_wrapper_validates():
+    q = torch.zeros(1, 4, 2, 16)
+    k = torch.zeros(1, 3, 5, 16)
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="q must be"):
+        fa.flash_attention(q[0], k, k)
+    k = torch.zeros(1, 2, 5, 16)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        fa.flash_attention(q, k.double(), k)
+    before = fa.LAUNCHES
+    fa.flash_attention(q, k, k)
+    assert fa.LAUNCHES == before  # CPU calls take the twin, uncounted

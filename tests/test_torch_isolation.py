@@ -46,10 +46,16 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_new_modules_are_checked():
-    """The per-instance LP, the LP-guided order and the certificate are
-    among the files the syntax check reads."""
+    """The per-instance LP, the LP-guided order, the certificate and the
+    serving path (configs, models, flash kernel, serve) are among the
+    files the syntax check reads."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
-    for mod in ("core/lp.py", "core/ordering.py", "core/lower_bounds.py", "core/theory.py"):
+    for mod in (
+        "core/lp.py", "core/ordering.py", "core/lower_bounds.py", "core/theory.py",
+        "configs/base.py", "configs/__init__.py", "configs/gemma3_1b.py",
+        "kernels/flash_attention.py", "models/layers.py", "models/model.py",
+        "launch/serve.py",
+    ):
         assert f"src/repro_torch/{mod}" in names
 
 
@@ -57,7 +63,8 @@ def test_import_loads_no_jax():
     code = (
         "import sys, repro_torch.pipeline, repro_torch.experiments, "
         "repro_torch.convert, repro_torch.traffic, repro_torch.core.ordering, "
-        "repro_torch.core.lower_bounds, repro_torch.core.theory; "
+        "repro_torch.core.lower_bounds, repro_torch.core.theory, "
+        "repro_torch.configs, repro_torch.models, repro_torch.launch.serve; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -72,12 +79,16 @@ def test_import_loads_no_jax():
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.configs import get_arch
     from repro_torch.core import lp
     from repro_torch.core.ordering import lp_guided_order
     from repro_torch.experiments import solve_ensemble_lp
+    from repro_torch.launch.serve import main, serve
+    from repro_torch.models import build_model
     from repro_torch.pipeline import build_ensemble_batch, get_pipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_arch("gemma3-1b").reduced()
     inst = from_reference(random_instance(num_coflows=3, num_ports=2, seed=0), "cpu")
     sol = lp.LPSolution(
         completion=[1.0, 2.0, 3.0], precedence=None, objective=0.0, method="x"
@@ -95,6 +106,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: get_pipeline("ours").run(inst, sol),
         lambda: get_pipeline("ours", lp_method="subgradient").run_batch([inst]),
         lambda: get_pipeline("ours").order_stage.order(inst),
+        lambda: build_model(cfg),
+        lambda: serve(cfg, None, slots=1, requests=1, prompt_len=2, max_new=1, seed=0),
+        lambda: main(["--requests", "1", "--prompt-len", "2", "--max-new", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -9,7 +9,11 @@ Tolerances:
     f32 oracle, rho agrees to 2N f32 roundings (2N * 2**-24 relative);
   * lp_terms_batch and lp_terms -- `lp_terms.rtol(M)` relative: every
     summand is >= 0, so any summation order is within (M-1) * 2**-24 of
-    the exact value.
+    the exact value;
+  * flash_attention (kernel against twin, card only) -- 2e-5 in f32 (the
+    reference sweep's tolerance); in bf16 one bf16 rounding, 2**-7 of the
+    value plus 1e-5: both compute in f32 and round once.  The twin against
+    the reference is in `tests/test_torch_attention.py`.
 """
 
 import numpy as np
@@ -28,6 +32,7 @@ from repro.kernels.port_stats.ref import port_stats_ref
 from repro.traffic.instances import random_instance
 from repro_torch.convert import from_reference
 from repro_torch.core import lp as port_lp
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lp_terms as lt
 from repro_torch.kernels import pair_resolve as pr
 from repro_torch.kernels import port_stats as ps
@@ -226,3 +231,40 @@ def test_lp_terms_kernel_matches_plain_and_batch(cuda, M, P):
     batch = lt.lp_terms_batch(X, rho, tau, inv_R, dok)
     for a, b in zip(got, batch):
         assert torch.equal(a, b[0])
+
+
+# ------------------------------------------------------------- flash_attention
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,Hq,Hkv,Sq,Skv,D,causal,window,off",
+    [
+        (4, 4, 1, 600, 617, 256, True, 512, 0),   # gemma3 prefill, local layer
+        (4, 4, 1, 1, 617, 256, True, None, 600),  # gemma3 decode, global layer
+        (2, 4, 2, 256, 256, 64, True, None, 0),
+        (1, 2, 2, 256, 256, 64, True, 100, 0),
+        (1, 2, 2, 128, 128, 128, False, None, 0),
+        (1, 3, 1, 64, 320, 32, True, None, 256),
+        (2, 4, 2, 40, 57, 16, True, 16, 0),
+    ],
+)
+def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Hq, Hkv, Sq, Skv, D, causal, window, off):
+    rng = np.random.default_rng(Sq * 1000 + Skv + D)
+    q, k, v = (
+        torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda, dtype)
+        for s in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = fa.LAUNCHES
+    got = fa.flash_attention(q, k, v, causal, window, off)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == before + 1 and got.dtype == dtype
+    want = fa.flash_attention_plain(q, k, v, causal, window, off).to(torch.float32)
+    err = (got.to(torch.float32) - want).abs()
+    if dtype == torch.float32:
+        assert bool((err <= 2e-5).all())
+    else:
+        assert bool((err <= 2**-7 * want.abs() + 1e-5).all())
+    # The model's (B, S, H, D) tensors, viewed as (B, H, S, D): same bits.
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+    assert torch.equal(fa.flash_attention(*views, causal, window, off), got)
