@@ -11,14 +11,26 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    152 ports, both LP-terms kernels at 300 flat ports), with its time
    (CUDA events, median of 30 runs after warm-up), the twin's, one library
    call's where one computes the same function, the least time the card
-   could take (`bound_ms`) and the profiler's device-only time;
+   could take (`bound_ms`) and the profiler's device-only time.
+   `event_resolve` is held against its twin once phases 3 and 5 have given
+   it real calendar states: mask for mask (start, first claimers, blocked)
+   under both disciplines, on every round of a flow calendar run on the
+   main path's bucket (G = 96, Nmax = 12), on 64 rounds at the fig5 width
+   (N = 32) and 3 rounds of the whole trace's one member (F = 266,260,
+   N = 152), and on a random state of each shape;
 3. the main path end to end on the paper's default setting (Sec. V-A:
    N=10, M=100, K=3, rates 10/20/30, delta=8, zero releases), 32 seeds:
    `solve_ensemble_lp` (3000 iterations), then
    ``get_pipeline("ours").run_batch(..., validate=True)`` under the greedy
    and the reserving discipline; every schedule validates, every weighted
    CCT is within (8K+1) times its LP objective, and each kernel's launch
-   count moved as expected; then a stage-by-stage timing pass;
+   count moved as expected; the same LP solutions again through
+   ``get_pipeline("ours", discipline=d, circuit_engine="jax")`` (the
+   flow-space calendar), counted apart: schedules bit-identical to the
+   pair engine's and to the flow engine's on the CPU, `event_resolve`
+   launched once per flow-calendar round and `pair_resolve` never, and
+   under reserving as many rounds as the pair engine; then a
+   stage-by-stage timing pass, the calendar under both engines;
 4. the same LP solutions through `run_batch` on the GPU and on the CPU:
    orders, core choices, establish and complete times and CCTs must be
    bit-identical; phases 3 and 4 again on 8 trace-release instances;
@@ -34,7 +46,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    (`certify(...).ok()`) and the approximation ratio is within its bound
    under both disciplines, `lp_terms` launched exactly
    solves x (iterations + 2) times, and every run repeated on the CPU
-   with the same LP solution is bit-identical;
+   with the same LP solution is bit-identical; then
+   ``get_pipeline("ours", circuit_engine="jax").run(inst, sol)`` on paper
+   seed 0 and at fig5 N = 32, each bit-identical to the pair engine's run;
 6. serving ``gemma3-1b`` at full width (26 layers, d_model 1152, vocab
    262144, head_dim 256, window 512; random weights from a seed) through
    `repro_torch.launch.serve.serve`: 8 requests of 600 prompt tokens, 4
@@ -146,6 +160,26 @@ def random_claims(torch, G, N, gen, dev):
     return claim.to(dev).contiguous(), idle.to(dev).contiguous()
 
 
+#: Launches in one profiled window of `timed_call`.
+PROFILED_LAUNCHES = 30
+
+
+def profiled_launches(torch, kernel, fn, n):
+    """Profile ``n`` calls of ``fn``; return the device microseconds and the
+    count of the launches of ``kernel`` that the profiler recorded.  It
+    now and then reports no device activity for a window this short: up
+    to three windows are tried.  After a traced session of tens of
+    thousands of kernels it may also record only part of a window's
+    launches, so the count is returned, not assumed."""
+    for _ in range(3):
+        _, kernels = profile_device(torch, lambda: [fn() for _ in range(n)])
+        mine = [v for k, v in kernels.items()
+                if f"{kernel}_kernel(" in k or f"{kernel}_kernel<" in k]
+        if mine:
+            return sum(t for t, _ in mine), sum(c for _, c in mine)
+    return 0.0, 0
+
+
 def timed_call(torch, label, kernel, fn, plain, library, nbytes, ops, peak):
     """Time one kernel call at one shape and log it: ``kernel_ms`` and
     ``plain_ms`` (CUDA events), ``library_ms`` where one PyTorch call
@@ -160,18 +194,10 @@ def timed_call(torch, label, kernel, fn, plain, library, nbytes, ops, peak):
     lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
     log(f"kernel {label}: kernel_ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} "
         f"library_ms {lib} bound_ms {b_ms:.6f} ({b_by})")
-    # The profiler now and then reports no device activity for a window
-    # this short: try up to three windows.
-    for _ in range(3):
-        _, kernels = profile_device(torch, lambda: [fn() for _ in range(30)])
-        mine = [v for k, v in kernels.items()
-                if f"{kernel}_kernel(" in k or f"{kernel}_kernel<" in k]
-        if mine:
-            break
-    if mine:
-        total_us, count = mine[0]
+    total_us, count = profiled_launches(torch, kernel, fn, PROFILED_LAUNCHES)
+    if count:
         log(f"kernel {label}: device-only {total_us / count:.2f} us per launch "
-            f"(profiler, {count} launches)")
+            f"(profiler, {count} of {PROFILED_LAUNCHES} launches recorded)")
     else:
         log(f"kernel {label}: device-only time not measured (the profiler "
             f"saw no device activity)")
@@ -474,6 +500,119 @@ def phase_flash_kernel(torch):
     )
 
 
+def schedule_tables(pairs):
+    """Calendar member tables (the flows of each (instance, core), in
+    priority order) of finished runs: ``pairs`` holds (instance, result)."""
+    tabs = []
+    for inst, res in pairs:
+        for cs in res.core_schedules:
+            if len(cs.coflow):
+                tabs.append(dict(src=cs.src, dst=cs.dst, rel=inst.releases[cs.coflow],
+                                 dur=cs.delta + cs.size / cs.rate))
+    return tabs
+
+
+def whole_trace_table(inst):
+    """The one member of a single-core instance: every flow, coflows in
+    release order."""
+    m, i, j = np.nonzero(inst.demands)
+    o = np.argsort(inst.releases[m], kind="stable")
+    m, i, j = m[o], i[o], j[o]
+    return dict(src=i, dst=j, rel=inst.releases[m],
+                dur=inst.delta + inst.demands[m, i, j] / inst.rates[0])
+
+
+def random_event_state(torch, gen, G, F, N, dev):
+    """`event_resolve` operands from a seed: f64 times, 70 % pending."""
+    def f64(*shape):
+        return (10.0 * torch.rand(shape, generator=gen, dtype=torch.float64)).to(dev)
+
+    def ports():
+        return torch.randint(0, N, (G, F), generator=gen, dtype=torch.int32).to(dev)
+
+    return (ports(), ports(), f64(G, F), f64(G, N), f64(G, N),
+            (torch.rand((G, F), generator=gen) < 0.7).to(dev), f64(G))
+
+
+def phase_event_kernel(torch, shapes):
+    """`event_resolve` against its twin on the card, mask for mask (start,
+    first claimers, blocked), under both disciplines: on the states of a
+    flow calendar run on each bucket (``shapes``: label -> (member tables,
+    ports, rounds to check)) and on random states of the same shape; then
+    timed at each, the main path's bucket last."""
+    from repro_torch.kernels import event_resolve as er
+    from repro_torch.pipeline import batch_circuit as bc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(17)
+    states = {}
+    for label, (tabs, n_ports, max_rounds) in shapes.items():
+        pad = bc._pad_members(tabs, n_ports)
+        G, F, N = pad["G"], pad["Fmax"], pad["Nmax"]
+        for d in ("greedy", "reserving"):
+            cal = bc._FlowCalendar(pad, d == "reserving", dev)
+            checked = starts = 0
+            while checked < max_rounds and cal.live():
+                args = cal.flow_args()
+                if checked == 0 and d == "greedy":
+                    states[label] = (args, G, F, N)
+                got = er.event_resolve(*args, d)
+                torch.cuda.synchronize()
+                want = er.event_resolve_plain(*args, d)
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"event_resolve {label} ({G},{F},{N}) {d} round {checked} != plain")
+                starts += int(want[0].sum())
+                checked += 1
+                cal.round()
+            rand = random_event_state(torch, gen, G, F, N, dev)
+            got = er.event_resolve(*rand, d)
+            torch.cuda.synchronize()
+            want = er.event_resolve_plain(*rand, d)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"event_resolve {label} ({G},{F},{N}) {d} random state != plain")
+            log(f"event_resolve {label} (G={G}, Fmax={F}, Nmax={N}) {d}: exact match "
+                f"(start, first claimers, blocked) on {checked} calendar rounds "
+                f"({starts} starts) and one random state ({int(want[0].sum())} starts)")
+    t = None
+    for label, (args, G, F, N) in reversed(list(states.items())):
+        # What this state needs, padding included: the pending byte in and
+        # the start byte out of every slot, the f64 release of a pending
+        # flow, the two int32 ports of a waiting one (pending and
+        # released); f64 free times in and int32 first claimers out per
+        # port; t in and blocked out per member.  Operations: one f64
+        # compare per pending flow, two more per waiting one.
+        rel, pending, t_g = args[2], args[5], args[6]
+        n_pending = int(pending.sum())
+        n_waiting = int((pending & (rel <= t_g[:, None])).sum())
+        log(f"event_resolve {label}: {G * F} slots, {n_pending} pending, "
+            f"{n_waiting} waiting")
+        t = timed_call(
+            torch, f"event_resolve {label} (G={G}, F={F}, N={N}, greedy)",
+            "event_resolve",
+            lambda: er.event_resolve(*args, "greedy"),
+            lambda: er.event_resolve_plain(*args, "greedy"), None,
+            2 * G * F + 8 * n_pending + 8 * n_waiting
+            + G * N * (8 + 8 + 4 + 4) + G * (8 + 1),
+            n_pending + 2 * n_waiting, F64_OPS_PER_S,
+        )
+    # Control: this phase runs after the traced passes of phases 3-5, so
+    # profile a kernel timed before them, at its main-path shape, here too:
+    # a partial count for it as well is the profiler's, not the kernel's.
+    from repro_torch.kernels import pair_resolve as pr
+
+    claim, idle = random_claims(torch, 96, 12, gen, dev)
+    _, count = profiled_launches(torch, "pair_resolve",
+                                 lambda: pr.pair_resolve(claim, idle), PROFILED_LAUNCHES)
+    log(f"profiler control: pair_resolve (96,12,12) after phases 3-5: {count} of "
+        f"{PROFILED_LAUNCHES} launches recorded")
+    return dict(
+        name="event_resolve", route="cuda",
+        source="src/repro_torch/csrc/event_resolve.cu",
+        replaces="src/repro/kernels/event_resolve/kernel.py:89",
+        max_abs_err=0.0, **t,
+    )
+
+
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: the main path end to end, and GPU/CPU parity
 # ---------------------------------------------------------------------------
@@ -481,20 +620,28 @@ def phase_flash_kernel(torch):
 
 def counters():
     """Kernel name -> (module, name of its launch counter)."""
-    from repro_torch.kernels import flash_attention, lp_terms, pair_resolve, port_stats
+    from repro_torch.kernels import (
+        event_resolve, flash_attention, lp_terms, pair_resolve, port_stats,
+    )
 
     return dict(
         port_stats=(port_stats, "LAUNCHES"),
         lp_terms_batch=(lp_terms, "LAUNCHES"),
         lp_terms=(lp_terms, "SINGLE_LAUNCHES"),
         pair_resolve=(pair_resolve, "LAUNCHES"),
+        event_resolve=(event_resolve, "LAUNCHES"),
         flash_attention=(flash_attention, "LAUNCHES"),
     )
 
 
 def reset_counts():
+    """Every kernel's launch count and each calendar engine's rounds to 0."""
+    from repro_torch.pipeline import batch_circuit
+
     for mod, attr in counters().values():
         setattr(mod, attr, 0)
+    for engine in batch_circuit.ROUNDS:
+        batch_circuit.ROUNDS[engine] = 0
 
 
 def read_counts():
@@ -507,18 +654,19 @@ def phase_end_to_end(torch, label, instances):
     from repro_torch.pipeline import batch_circuit, get_pipeline
 
     reset_counts()
-    batch_circuit.ROUNDS = 0
     t0 = time.perf_counter()
     sols = solve_ensemble_lp(instances, iters=LP_ITERS)
-    results = {}
+    results, pair_rounds = {}, {}
     for d in ("greedy", "reserving"):
+        before = batch_circuit.ROUNDS["kernel"]
         results[d] = get_pipeline("ours", discipline=d).run_batch(
             instances, lp_solutions=sols, validate=True
         )
+        pair_rounds[d] = batch_circuit.ROUNDS["kernel"] - before
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    rounds = batch_circuit.ROUNDS
+    rounds = batch_circuit.ROUNDS["kernel"]
 
     for d, res in results.items():
         for b, (inst, sol, r) in enumerate(zip(instances, sols, res)):
@@ -551,6 +699,9 @@ def phase_end_to_end(torch, label, instances):
     check(counts["lp_terms"] == 0,
           f"{label}: lp_terms launched {counts['lp_terms']} times on the "
           f"batched path, expected 0")
+    check(counts["event_resolve"] == batch_circuit.ROUNDS["jax"] == 0,
+          f"{label}: event_resolve launched {counts['event_resolve']} times under "
+          f"the pair engine, expected 0")
     log(f"{label}: {len(instances)} instances validated under both "
         f"disciplines; weighted CCT / LP objective (greedy) min "
         f"{min(ratios):.4f} max {max(ratios):.4f}; bound 8K+1 = "
@@ -559,11 +710,78 @@ def phase_end_to_end(torch, label, instances):
         f"{expect_lp} = {n_buckets} bucket(s) x ({LP_ITERS} steps + start + "
         f"result); port_stats expected {expect_ps}; pair_resolve expected "
         f"{rounds} = calendar rounds of both disciplines)")
-    return sols, counts
+    return sols, counts, results, pair_rounds
+
+
+def phase_flow_engine(torch, label, instances, sols, pair_results, pair_rounds):
+    """The same LP solutions through ``circuit_engine="jax"`` (the
+    flow-space calendar on `event_resolve`), both disciplines, counted
+    apart from the pair engine's run: schedules bit-identical to the pair
+    engine's on the card and to the flow engine's on the host;
+    `event_resolve` launched once per flow-calendar round, `pair_resolve`
+    never; under reserving as many rounds as the pair engine."""
+    from repro_torch.pipeline import batch_circuit, get_pipeline
+
+    reset_counts()
+    results, rounds, walls = {}, {}, {}
+    for d in ("greedy", "reserving"):
+        before = batch_circuit.ROUNDS["jax"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[d] = get_pipeline("ours", discipline=d, circuit_engine="jax").run_batch(
+            instances, lp_solutions=sols, validate=True
+        )
+        torch.cuda.synchronize()
+        walls[d] = time.perf_counter() - t0
+        rounds[d] = batch_circuit.ROUNDS["jax"] - before
+    counts = read_counts()
+    total = batch_circuit.ROUNDS["jax"]
+
+    for d, res in results.items():
+        for b, (inst, sol, r, want) in enumerate(zip(instances, sols, res, pair_results[d])):
+            check(r.total_weighted_cct <= (8 * inst.num_cores + 1) * sol.objective,
+                  f"{label} jax engine {d} instance {b}: weighted CCT beyond (8K+1) x LP")
+            check_same_schedule(f"{label} jax engine vs kernel engine {d} instance {b}",
+                                r, want)
+    expect_ps = 2 * len({inst.num_ports for inst in instances})
+    check(counts["event_resolve"] == total > 0,
+          f"{label}: event_resolve launched {counts['event_resolve']} times, "
+          f"expected {total} (one per flow-calendar round)")
+    check(counts["pair_resolve"] == batch_circuit.ROUNDS["kernel"] == 0,
+          f"{label}: pair_resolve launched {counts['pair_resolve']} times under "
+          f"the flow engine, expected 0")
+    check(counts["port_stats"] == expect_ps,
+          f"{label}: port_stats launched {counts['port_stats']} times under the "
+          f"flow engine, expected {expect_ps}")
+    check(counts["lp_terms_batch"] == counts["lp_terms"] == 0,
+          f"{label}: LP kernels launched under the flow engine")
+    check(rounds["reserving"] == pair_rounds["reserving"],
+          f"{label}: reserving flow calendar ran {rounds['reserving']} rounds, the "
+          f"pair calendar {pair_rounds['reserving']}")
+    log(f"{label} jax engine: schedules bit-identical to the kernel engine's "
+        f"(orders, cores, establish/complete, CCTs; both disciplines); rounds "
+        f"greedy {rounds['greedy']} (pair engine {pair_rounds['greedy']}), "
+        f"reserving {rounds['reserving']} (pair engine {pair_rounds['reserving']}); "
+        f"run_batch wall greedy {walls['greedy']:.4f} s, reserving "
+        f"{walls['reserving']:.4f} s")
+    log(f"{label} jax engine: launches {json.dumps(counts)} (event_resolve "
+        f"expected {total} = flow-calendar rounds of both disciplines; "
+        f"pair_resolve 0; port_stats {expect_ps})")
+
+    for d in ("greedy", "reserving"):
+        cpu = get_pipeline("ours", discipline=d, circuit_engine="jax").run_batch(
+            instances, sols, validate=True, device="cpu"
+        )
+        for b, (g, c) in enumerate(zip(results[d], cpu)):
+            check_same_schedule(f"{label} jax engine GPU vs CPU {d} instance {b}", g, c)
+    log(f"{label} jax engine: GPU and CPU runs bit-identical (both disciplines)")
+    return counts, results
 
 
 def stage_times(torch, label, instances):
-    """Stage-by-stage wall times of the main path (greedy discipline)."""
+    """Stage-by-stage wall times of the main path (greedy discipline); the
+    calendar under both engines, then both again in turns (kernel, jax,
+    jax, kernel) to show the spread within this call."""
     from repro_torch.core import lp
     from repro_torch.pipeline import build_ensemble_batch, get_pipeline
 
@@ -578,6 +796,7 @@ def stage_times(torch, label, instances):
     sols, t_lp = timed(lambda: lp.solve_subgradient_batch_arrays(
         arrays, iters=LP_ITERS).unpack([i.num_coflows for i in instances]))
     pipe = get_pipeline("ours", discipline="greedy")
+    flow = get_pipeline("ours", discipline="greedy", circuit_engine="jax").circuit_stage
     ens, t_build = timed(lambda: build_ensemble_batch(instances))
     comp = np.zeros(tuple(ens.weights.shape))
     for b, s in enumerate(sols):
@@ -585,16 +804,25 @@ def stage_times(torch, label, instances):
     orders, t_order = timed(lambda: pipe.order_stage.order_batch(
         ens, torch.from_numpy(comp).cuda()))
     alloc, t_alloc = timed(lambda: pipe.allocate_stage.allocate_batch_arrays(ens, orders))
-    _, t_cal = timed(lambda: pipe.circuit_stage.schedule_batch_arrays(ens, alloc))
+    calendars = dict(
+        calendar=lambda: pipe.circuit_stage.schedule_batch_arrays(ens, alloc),
+        calendar_jax=lambda: flow.schedule_batch_arrays(ens, alloc),
+    )
+    _, t_cal = timed(calendars["calendar"])
+    _, t_cal_jax = timed(calendars["calendar_jax"])
     times = dict(pack=t_pack, lp=t_lp, build=t_build, order=t_order,
-                 allocation=t_alloc, calendar=t_cal)
+                 allocation=t_alloc, calendar=t_cal, calendar_jax=t_cal_jax)
     log(f"{label} stage seconds: " + json.dumps({k: round(v, 4) for k, v in times.items()}))
+    turns = [timed(calendars[k])[1] for k in ("calendar", "calendar_jax",
+                                               "calendar_jax", "calendar")]
+    log(f"{label} calendar seconds in turns (kernel, jax, jax, kernel): "
+        + ", ".join(f"{t:.4f}" for t in turns))
 
     # A traced pass: device busy share per stage (the LP at 100 steps).
     traced = dict(
         lp_100_steps=lambda: lp.solve_subgradient_batch_arrays(arrays, iters=100),
         allocation=lambda: pipe.allocate_stage.allocate_batch_arrays(ens, orders),
-        calendar=lambda: pipe.circuit_stage.schedule_batch_arrays(ens, alloc),
+        **calendars,
     )
     for name, fn in traced.items():
         wall, kernels = profile_device(torch, fn)
@@ -669,7 +897,6 @@ def phase_per_instance(torch, subgradient_insts, exact_insts):
             f"ensemble build + order {wall - res.wall_time_s:.4f} s")
 
     reset_counts()
-    batch_circuit.ROUNDS = 0
     runs = []  # (label, LP method, instance, discipline, result)
     for label, inst in subgradient_insts:
         res, wall = run(inst, "greedy", "subgradient")
@@ -685,7 +912,7 @@ def phase_per_instance(torch, subgradient_insts, exact_insts):
         timing(label, "the exact LP given", res, wall)
         runs.append((label, "exact", inst, "greedy", res))
     counts = read_counts()
-    rounds = batch_circuit.ROUNDS
+    rounds = batch_circuit.ROUNDS["kernel"]
 
     exact = {label: res.lp for label, m, _, _, res in runs if m == "exact"}
     for label, method, inst, d, res in runs:
@@ -742,7 +969,43 @@ def phase_per_instance(torch, subgradient_insts, exact_insts):
         check_same_schedule(f"per-instance {label} {method} {d}", res, cpu)
     log(f"per-instance: {len(runs)} runs validated; GPU and CPU runs with the "
         f"same LP solution bit-identical (orders, cores, establish/complete, CCTs)")
-    return counts
+    return counts, runs
+
+
+def phase_per_instance_flow(torch, runs, labels):
+    """``get_pipeline("ours", circuit_engine="jax").run(inst, sol)`` (greedy,
+    the exact LP given) on the ``labels`` instances of phase 5, each
+    bit-identical to the kernel engine's run; launches counted apart.
+    Returns label -> (instance, result)."""
+    from repro_torch.pipeline import batch_circuit, get_pipeline
+
+    given = {label: (inst, res) for label, m, inst, d, res in runs
+             if m == "exact" and d == "greedy"}
+    reset_counts()
+    out = {}
+    for label in labels:
+        inst, want = given[label]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = get_pipeline("ours", circuit_engine="jax").run(inst, want.lp)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check_same_schedule(f"per-instance {label} jax engine vs kernel engine", got, want)
+        log(f"per-instance {label}: run with the exact LP given, circuit_engine="
+            f"\"jax\": {wall:.4f} s, of which allocation + calendar "
+            f"{got.wall_time_s:.4f} s (kernel engine {want.wall_time_s:.4f} s); "
+            f"bit-identical to the kernel engine's run")
+        out[label] = (inst, got)
+    counts = read_counts()
+    rounds = batch_circuit.ROUNDS
+    check(counts["event_resolve"] == rounds["jax"] > 0,
+          f"per-instance jax engine: event_resolve launched {counts['event_resolve']} "
+          f"times, expected {rounds['jax']} (one per flow-calendar round)")
+    check(counts["pair_resolve"] == rounds["kernel"] == 0,
+          f"per-instance jax engine: pair_resolve launched {counts['pair_resolve']} times")
+    log(f"per-instance jax engine: launches {json.dumps(counts)} (event_resolve "
+        f"expected {rounds['jax']} = flow-calendar rounds)")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -938,25 +1201,44 @@ def main() -> int:
     )
     rows.append(phase_flash_kernel(torch))
 
-    # Phases 3 and 4: the main path, then GPU/CPU parity, on both ensembles.
-    sols, counts = phase_end_to_end(torch, "paper default", paper)
+    # Phases 3 and 4: the main path, then GPU/CPU parity, on both ensembles;
+    # each time under the pair engine, then the flow engine counted apart.
+    sols, counts, paper_results, pair_rounds = phase_end_to_end(torch, "paper default", paper)
+    flow_counts, _ = phase_flow_engine(torch, "paper default", paper, sols,
+                                       paper_results, pair_rounds)
     stage_times(torch, "paper default", paper)
     phase_parity("paper default", paper, sols)
-    trace_sols, _ = phase_end_to_end(torch, "trace releases", trace)
+    trace_sols, _, trace_results, trace_rounds = phase_end_to_end(
+        torch, "trace releases", trace)
+    phase_flow_engine(torch, "trace releases", trace, trace_sols, trace_results,
+                      trace_rounds)
     phase_parity("trace releases", trace, trace_sols)
 
-    # Phase 5: per-instance ours, each run solving its own LP.
+    # Phase 5: per-instance ours, each run solving its own LP; then the flow
+    # engine on two of them.
     paper_1 = ("paper seed 0", paper[0])
     trace_1 = ("trace seed 1", sample_instance(seed=1, release="trace"))
-    single_counts = phase_per_instance(
+    fig5 = ("fig5 N=32", sample_instance(num_ports=32, seed=0))
+    single_counts, runs = phase_per_instance(
         torch,
         [paper_1, trace_1],
-        [paper_1, trace_1,
-         ("fig5 N=32", sample_instance(num_ports=32, seed=0)),
+        [paper_1, trace_1, fig5,
          ("fb_quick K=2", sample_instance(num_coflows=48, num_ports=24,
                                           rates=(10.0, 20.0), release="trace",
                                           seed=0))],
     )
+    flow_runs = phase_per_instance_flow(torch, runs, [paper_1[0], fig5[0]])
+
+    # Phase 2, the flow-space round: `event_resolve` on the calendar states
+    # of the main path's bucket (the 32 paper-default schedules of phase 3),
+    # of the fig5 instance (phase 5) and of the whole trace's one member.
+    rows.insert(1, phase_event_kernel(torch, {
+        "main path bucket": (
+            schedule_tables(zip(paper, paper_results["greedy"])),
+            max(inst.num_ports for inst in paper), 10**9),
+        "fig5 N=32": (schedule_tables([flow_runs[fig5[0]]]), fig5[1].num_ports, 64),
+        "fb_full": ([whole_trace_table(fb_full)], fb_full.num_ports, 3),
+    }))
 
     # Phase 6: serving gemma3-1b at full width.
     serve_counts = phase_serving(torch)
@@ -964,6 +1246,7 @@ def main() -> int:
     # Phase 7: the kernels line (each kernel's launches on its main path),
     # then the result.
     counts["lp_terms"] = single_counts["lp_terms"]
+    counts["event_resolve"] = flow_counts["event_resolve"]
     counts["flash_attention"] = serve_counts["flash_attention"]
     for r in rows:
         r["launches"] = counts[r["name"]]

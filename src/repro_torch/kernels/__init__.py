@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch twin.
 
-* `repro_torch.kernels.pair_resolve` -- the calendar round reduction (from
-  ``repro/kernels/event_resolve``);
+* `repro_torch.kernels.pair_resolve` -- the pair-space calendar round
+  reduction (from ``repro/kernels/event_resolve``);
+* `repro_torch.kernels.event_resolve` -- the flow-space calendar round, both
+  disciplines in f64 (from ``repro/kernels/event_resolve``);
 * `repro_torch.kernels.port_stats` -- per-port loads and counts (from
   ``repro/kernels/port_stats``);
 * `repro_torch.kernels.lp_terms` -- the LP's hard-max terms (from

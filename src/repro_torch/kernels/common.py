@@ -29,7 +29,10 @@ __all__ = ["launch", "library", "library_path", "stream_of", "BUILD_DIR"]
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-_SOURCES = ("pair_resolve.cu", "port_stats.cu", "lp_terms.cu", "flash_attention.cu")
+_SOURCES = (
+    "pair_resolve.cu", "event_resolve.cu", "port_stats.cu", "lp_terms.cu",
+    "flash_attention.cu",
+)
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -42,6 +45,7 @@ _L = ctypes.c_longlong
 #: C signature (argument types) of each entry point; all return int.
 _SIGNATURES = {
     "pair_resolve": (_P, _P, _P, _I, _I, _P),
+    "event_resolve": (_P,) * 11 + (_I,) * 4 + (_P,),
     "port_stats": (_P, _P, _P, _I, _I, _P),
     "lp_terms_batch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "lp_terms": (_P, _P, _P, _F, _F, _P, _P, _I, _I, _P),

@@ -6,7 +6,8 @@
   * `repro_torch.pipeline.ensemble_batch` -- the padded `EnsembleBatch`
     built once per ensemble, and the `AllocationBatch` it produces;
   * `repro_torch.pipeline.batch_alloc` / `batch_circuit` -- the device
-    allocation scan and the pair-space circuit calendar.
+    allocation scan and the circuit calendars (pair space,
+    ``circuit_engine="kernel"``; flow space, ``circuit_engine="jax"``).
 
 Typical use::
 

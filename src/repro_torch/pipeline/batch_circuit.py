@@ -1,34 +1,47 @@
 """Ensemble-batched intra-core circuit scheduling (Alg. 1 Lines 16-30).
 
-Port of the ``engine="kernel"`` path of `repro.pipeline.batch_circuit`:
-the pair-space event calendar for the whole flattened (instance x core)
-member axis at once, on the device.  Flows of one (ingress, egress) pair
-share both ports and execute sequentially, so only each pair's head (its
-first waiting flow) can claim or start; every round
+Port of two of the reference's calendar executors
+(`repro.pipeline.batch_circuit`), selected by ``engine=``.  Both run the
+event calendar for the whole flattened (instance x core) member axis at
+once, on the device, one resolution round at a time:
 
-  * recomputes the heads statelessly as an exclusive segment-min of
-    waiting flow ids over the pair-sorted flow axis (an int32 `cummin`
-    with descending per-segment offsets, `_port_segments` on the host);
-  * reduces the (G, N, N) claim matrix with the `pair_resolve` kernel
-    (idle & row-first & column-first);
-  * writes establish/complete times, frees ports through row/column maxima
-    and advances each member's clock to its next event unless another
-    round at the same instant is possible.
+  * ``"kernel"`` (the default) -- the pair-space calendar.  Flows of one
+    (ingress, egress) pair share both ports and execute sequentially, so
+    only each pair's head (its first waiting flow) can claim or start.
+    Every round recomputes the heads statelessly as an exclusive
+    segment-min of waiting flow ids over the pair-sorted flow axis (an
+    int32 `cummin` with descending per-segment offsets, `_port_segments`
+    on the host), reduces the (G, N, N) claim matrix with the
+    `pair_resolve` kernel (idle & row-first & column-first), and frees
+    ports through row/column maxima.
+  * ``"jax"`` -- the flow-space calendar (the reference's `_run_calendar`).
+    Every round hands the (G, F) flows to the `event_resolve` kernel,
+    which finds each port's first claimer (an `atomicMin` per port, in
+    place of the reference's presorted `cummin`) and the idle flows that
+    are first on both their ports; ports free through (G, N) gathers of
+    their first claimers.
 
-The JAX package runs this round in a ``lax.while_loop``; here a Python
-loop runs it, testing on the host every `_CHECK_EVERY` rounds whether any
-member still has pending, unstalled flows, and never passing
+Both then write establish/complete times and advance each member's clock
+to its next event unless another round at the same instant is possible.
+Under reserving the two engines advance on the same condition (a
+zero-duration start) and run the same rounds.  Under greedy the flow
+engine also holds the clock for an idle later flow of a pair whose head
+just started, so it may run more rounds; the schedule is the same.
+
+The JAX package runs these rounds in a ``lax.while_loop``; here a Python
+loop runs them, testing on the host every `_CHECK_EVERY` rounds whether
+any member still has pending, unstalled flows, and never passing
 `event_bound` rounds.  That is exact because a round in which a member has
-nothing waiting changes none of its state: no head exists, nothing starts
-or frees, and its clock and stall flag are left alone.  All times are f64
-and every per-round operation is a selection, a min/max or ``t + dur``
-with ``dur`` computed exactly as the oracle's ``delta + size / rate``, so
-establish and complete times are bit-identical to
-`repro.core.circuit.schedule_core` on both disciplines.
+nothing waiting changes none of its state: nothing starts or frees, and
+its clock and stall flag are left alone.  All times are f64 and every
+per-round operation is a selection, a min/max or ``t + dur`` with ``dur``
+computed exactly as the oracle's ``delta + size / rate``, so establish and
+complete times are bit-identical to `repro.core.circuit.schedule_core` on
+both disciplines, under either engine.
 
 The member tables (partition, padding and segment metadata) are built on
-the host in NumPy: they are static per call.  The ``"wide"`` and ``"jax"``
-engines of the reference are not ported.
+the host in NumPy: they are static per call.  The reference's ``"wide"``
+host engine is not ported, and neither is ``"auto"`` (`check_engine`).
 """
 
 from __future__ import annotations
@@ -42,10 +55,14 @@ from repro_torch.core.allocation import Allocation
 from repro_torch.core.circuit import NOT_SCHEDULED, CoreSchedule
 from repro_torch.core.coflow import CoflowInstance
 from repro_torch.core.validate import ccts_from_schedules
+from repro_torch.kernels.event_resolve import event_resolve
 from repro_torch.kernels.pair_resolve import pair_resolve
 from repro_torch.pipeline.ensemble_batch import AllocationBatch, EnsembleBatch
 
-__all__ = ["schedule_batch_arrays", "member_tables", "event_bound", "ROUNDS"]
+__all__ = [
+    "schedule_batch_arrays", "member_tables", "event_bound", "check_engine",
+    "ENGINES", "ROUNDS",
+]
 
 # Bucket quanta of the reference: flows, ports and members round up.
 _F_QUANTUM = 16
@@ -55,8 +72,13 @@ _G_QUANTUM = 8
 #: Rounds between host checks for live members.
 _CHECK_EVERY = 16
 
-#: Calendar rounds run so far; every round calls `pair_resolve` once.
-ROUNDS = 0
+#: Calendar executors of the port: pair space on `pair_resolve`, flow
+#: space on `event_resolve`.
+ENGINES = ("kernel", "jax")
+
+#: Calendar rounds run so far, per engine; every round calls its kernel's
+#: wrapper (`pair_resolve` or `event_resolve`) once.
+ROUNDS = dict.fromkeys(ENGINES, 0)
 
 
 def event_bound(num_flows: int) -> int:
@@ -158,42 +180,24 @@ def _pad_members(tabs: Sequence[dict], num_ports_max: int) -> dict:
 
 
 class _Calendar:
-    """Padded pair-space calendar of one bucket, as device tensors.
+    """Padded event calendar of one bucket, as device tensors.
 
     The static tables are fields; `state` holds the carried arrays
-    (free_in, free_out, establish, complete, pending, t, stalled) and
-    `round` advances it by one resolution round.
+    (free_in, free_out, establish, complete, pending, t, stalled), and a
+    subclass's `round` advances it by one resolution round of its engine:
+    `_PairCalendar` in pair space through `pair_resolve`, `_FlowCalendar`
+    in flow space through `event_resolve`.
     """
+
+    engine = ""
 
     def __init__(self, pad: dict, reserving: bool, device: torch.device):
         G, F, N = pad["G"], pad["Fmax"], pad["Nmax"]
-        P = N * N
-        if (P + 1) * (F + 1) >= 2**31:
-            raise ValueError(
-                f"calendar bucket too large for int32 segment keys "
-                f"(Fmax={F}, Nmax={N})"
-            )
-        pairkey = np.where(pad["pending"], pad["src"] * N + pad["dst"], P)
-        pperm, poffs, psend, psempty = _port_segments(pairkey, P)
-
-        def dev(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-        self.G, self.F, self.N, self.P = G, F, N, P
+        self.G, self.F, self.N = G, F, N
         self.reserving = reserving
-        self.src, self.dst = dev(pad["src"]), dev(pad["dst"])
-        self.rel, self.dur = dev(pad["rel"]), dev(pad["dur"])
-        self.pperm = dev(pperm)
-        self.pperm32 = dev(pperm.astype(np.int32))
-        self.poffs = dev(poffs)
-        self.psend, self.psempty = dev(psend), dev(psempty)
-        self.pairc = dev(np.clip(pairkey, 0, P - 1))
-        self.ar = torch.arange(F, dtype=torch.int32, device=device)
-        arp = torch.arange(P, dtype=torch.int32, device=device)
-        self.pair_off = (P - arp) * (F + 1)
-        self.PI = (arp // N).long()  # static pair -> ingress port
-        self.PJ = (arp % N).long()  # static pair -> egress port
-        pending = dev(pad["pending"])
+        self.src, self.dst, self.rel, self.dur, pending = (
+            self._dev(pad[k], device) for k in ("src", "dst", "rel", "dur", "pending")
+        )
         f64 = dict(dtype=torch.float64, device=device)
         self.state = dict(
             free_in=torch.zeros((G, N), **f64),
@@ -205,13 +209,85 @@ class _Calendar:
             stalled=torch.zeros(G, dtype=torch.bool, device=device),
         )
 
+    @staticmethod
+    def _dev(a: np.ndarray, device: torch.device) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
     def live(self) -> bool:
         """Whether any member has a pending flow and is not stalled."""
         s = self.state
         return bool((s["pending"] & ~s["stalled"][:, None]).any())
 
     def round(self) -> None:
-        """One claim -> `pair_resolve` -> start -> advance round."""
+        """One resolution round."""
+        raise NotImplementedError
+
+    def _advance(self, advance, pending, free_in, free_out) -> None:
+        """Store the round's ports and pending flows; move each advancing,
+        unstalled member's clock to its next event, or mark it stalled if
+        it has pending flows and none can ever start."""
+        s = self.state
+        t, stalled = s["t"], s["stalled"]
+        times = torch.where(
+            pending,
+            torch.maximum(
+                self.rel,
+                torch.maximum(
+                    torch.gather(free_in, 1, self.src),
+                    torch.gather(free_out, 1, self.dst),
+                ),
+            ),
+            torch.inf,
+        )
+        t_next = torch.where(times > t[:, None], times, torch.inf).amin(dim=1)
+        alive = pending.any(dim=1)
+        stall = advance & alive & torch.isinf(t_next) & ~stalled
+        s["t"] = torch.where(advance & torch.isfinite(t_next) & ~stalled, t_next, t)
+        s["free_in"], s["free_out"] = free_in, free_out
+        s["pending"], s["stalled"] = pending, stalled | stall
+
+    def run(self, check_every: int = _CHECK_EVERY) -> None:
+        """Rounds until no member is live, never past `event_bound`."""
+        bound = event_bound(self.F)
+        it = 0
+        while it < bound and self.live():
+            n = min(check_every, bound - it)
+            for _ in range(n):
+                self.round()
+            it += n
+            ROUNDS[self.engine] += n
+
+
+class _PairCalendar(_Calendar):
+    """The ``"kernel"`` engine: rounds in pair space on `pair_resolve`."""
+
+    engine = "kernel"
+
+    def __init__(self, pad: dict, reserving: bool, device: torch.device):
+        super().__init__(pad, reserving, device)
+        F, N = self.F, self.N
+        P = self.P = N * N
+        if (P + 1) * (F + 1) >= 2**31:
+            raise ValueError(
+                f"calendar bucket too large for int32 segment keys "
+                f"(Fmax={F}, Nmax={N})"
+            )
+        # Pair-sorted segment metadata.
+        pairkey = np.where(pad["pending"], pad["src"] * N + pad["dst"], P)
+        pperm, poffs, psend, psempty = _port_segments(pairkey, P)
+        self.pperm = self._dev(pperm, device)
+        self.pperm32 = self._dev(pperm.astype(np.int32), device)
+        self.poffs = self._dev(poffs, device)
+        self.psend, self.psempty = self._dev(psend, device), self._dev(psempty, device)
+        self.pairc = self._dev(np.clip(pairkey, 0, P - 1), device)
+        self.ar = torch.arange(F, dtype=torch.int32, device=device)
+        arp = torch.arange(P, dtype=torch.int32, device=device)
+        self.pair_off = (P - arp) * (F + 1)
+        self.PI = (arp // N).long()  # static pair -> ingress port
+        self.PJ = (arp % N).long()  # static pair -> egress port
+
+    def round(self) -> None:
+        """One claim -> `pair_resolve` -> start -> advance round over pairs."""
         s = self.state
         G, F, N, P = self.G, self.F, self.N, self.P
         free_in, free_out = s["free_in"], s["free_out"]
@@ -260,36 +336,81 @@ class _Calendar:
         more = (startp & (dur_p == 0.0)).any(dim=1)
         if not self.reserving:
             more = more | (idle & ~startp).any(dim=1)
-        advance = ~more
-        times = torch.where(
-            pending,
-            torch.maximum(
-                self.rel,
-                torch.maximum(
-                    torch.gather(free_in, 1, self.src),
-                    torch.gather(free_out, 1, self.dst),
-                ),
-            ),
-            torch.inf,
-        )
-        t_next = torch.where(times > t_, times, torch.inf).amin(dim=1)
-        alive = pending.any(dim=1)
-        stall = advance & alive & torch.isinf(t_next) & ~stalled
-        s["t"] = torch.where(advance & torch.isfinite(t_next) & ~stalled, t_next, t)
-        s["free_in"], s["free_out"] = free_in, free_out
-        s["pending"], s["stalled"] = pending, stalled | stall
+        self._advance(~more, pending, free_in, free_out)
 
-    def run(self, check_every: int = _CHECK_EVERY) -> None:
-        """Rounds until no member is live, never past `event_bound`."""
-        global ROUNDS
-        bound = event_bound(self.F)
-        it = 0
-        while it < bound and self.live():
-            n = min(check_every, bound - it)
-            for _ in range(n):
-                self.round()
-            it += n
-            ROUNDS += n
+
+class _FlowCalendar(_Calendar):
+    """The ``"jax"`` engine: rounds in flow space on `event_resolve`."""
+
+    engine = "jax"
+
+    def __init__(self, pad: dict, reserving: bool, device: torch.device):
+        super().__init__(pad, reserving, device)
+        self.src32 = self.src.to(torch.int32)
+        self.dst32 = self.dst.to(torch.int32)
+        self.zero_dur = self.dur == 0.0
+
+    def flow_args(self) -> tuple:
+        """The `event_resolve` operands of the current state; a stalled
+        member pends nothing."""
+        s = self.state
+        return (
+            self.src32, self.dst32, self.rel, s["free_in"], s["free_out"],
+            s["pending"] & ~s["stalled"][:, None], s["t"],
+        )
+
+    def round(self) -> None:
+        """One `event_resolve` -> start -> free -> advance round over flows."""
+        s = self.state
+        F = self.F
+        t_ = s["t"][:, None]
+        start, first_in, first_out, blocked = event_resolve(
+            *self.flow_args(), "reserving" if self.reserving else "greedy"
+        )
+        s["est"] = torch.where(start, t_, s["est"])
+        s["comp"] = torch.where(start, t_ + self.dur, s["comp"])
+
+        # Only a port's first claimer can have started; if it did, the port
+        # frees at that flow's completion: (G, N) gathers, no scatter.
+        def freed(first, free):
+            fc = torch.clamp(first, 0, F - 1).long()
+            hit = (first < F) & torch.gather(start, 1, fc)
+            return torch.where(hit, t_ + torch.gather(self.dur, 1, fc), free)
+
+        # Advance unless another round at this t is possible: a
+        # zero-duration start chains its port's next waiting flow, and
+        # (greedy) an idle flow that did not start may start once its
+        # blocker started.
+        if self.reserving:
+            more = (start & self.zero_dur).any(dim=1)
+        else:
+            more = blocked
+        self._advance(
+            ~more, s["pending"] & ~start,
+            freed(first_in, s["free_in"]), freed(first_out, s["free_out"]),
+        )
+
+
+#: Calendar class of each engine.
+_CALENDARS = {c.engine: c for c in (_PairCalendar, _FlowCalendar)}
+
+
+def check_engine(engine: str) -> str:
+    """``engine`` if the port runs that calendar executor, else raise."""
+    if engine in ENGINES:
+        return engine
+    if engine == "wide":
+        raise ValueError(
+            "circuit engine 'wide' (the reference's host NumPy calendar) is "
+            "not ported yet; the port runs 'kernel' or 'jax'"
+        )
+    if engine == "auto":
+        raise ValueError(
+            "circuit engine 'auto' is not ported: name 'kernel' or 'jax'"
+        )
+    raise ValueError(
+        f"unknown circuit engine {engine!r}; the port runs 'kernel' or 'jax'"
+    )
 
 
 def _execute_members(
@@ -298,13 +419,14 @@ def _execute_members(
     discipline: str,
     device: torch.device,
     labels: Sequence[str],
+    engine: str = "kernel",
     check_every: int = _CHECK_EVERY,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Pad member tables, run the calendar on ``device``, return the
-    (G, Fmax) establish / complete arrays on the host."""
+    """Pad member tables, run the ``engine`` calendar on ``device``,
+    return the (G, Fmax) establish / complete arrays on the host."""
     if discipline not in ("reserving", "greedy"):
         raise ValueError(f"unknown discipline {discipline!r}")
-    cal = _Calendar(
+    cal = _CALENDARS[check_engine(engine)](
         _pad_members(tabs, num_ports_max), discipline == "reserving", device
     )
     cal.run(check_every)
@@ -325,8 +447,10 @@ def schedule_batch_arrays(
     ensemble: EnsembleBatch,
     alloc: AllocationBatch,
     discipline: str = "reserving",
+    engine: str = "kernel",
 ) -> list[tuple[list[CoreSchedule], np.ndarray]]:
-    """Circuit-schedule straight off the padded tensors.
+    """Circuit-schedule straight off the padded tensors with the
+    ``engine`` calendar (``"kernel"`` or ``"jax"``).
 
     The `AllocationBatch` flow axis is already in scheduling priority
     order, so each (instance, core) member table is a stable partition of
@@ -334,6 +458,7 @@ def schedule_batch_arrays(
     """
     if discipline not in ("reserving", "greedy"):
         raise ValueError(f"unknown discipline {discipline!r}")
+    check_engine(engine)
     B = ensemble.num_instances
     if B == 0:
         return []
@@ -369,6 +494,7 @@ def schedule_batch_arrays(
             discipline,
             ensemble.device,
             labels=[f"instance {b}, core {k}" for b, k, _ in members],
+            engine=engine,
         )
 
     by_member = {(b, k): g for g, (b, k, _) in enumerate(members)}

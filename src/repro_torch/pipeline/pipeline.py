@@ -134,13 +134,16 @@ def build_pipeline(
     discipline: str = "greedy",
     lp_method: str = "exact",
     lp_iters: int = 3000,
+    circuit_engine: str = "kernel",
 ) -> Pipeline:
     """Materialize a `SchemeSpec` into an executable `Pipeline`.
 
     ``discipline`` applies to list-scheduler circuits whose spec leaves it
     open (the spec's own pin wins); ``lp_method`` (``"exact"`` or
     ``"subgradient"``) and ``lp_iters`` configure the LP order stage when
-    it has to solve for itself.
+    it has to solve for itself; ``circuit_engine`` picks the calendar
+    executor, ``"kernel"`` (pair space) or ``"jax"`` (flow space).  The
+    reference's ``"wide"`` and ``"auto"`` are not ported and raise.
     """
     if spec.order != "lp":
         raise ValueError(f"order stage kind {spec.order!r} is not ported")
@@ -150,7 +153,7 @@ def build_pipeline(
         spec=spec,
         order_stage=st.LPOrder(lp_method, lp_iters),
         allocate_stage=st.GreedyAllocate(include_tau=spec.include_tau),
-        circuit_stage=st.ListCircuit(spec.discipline or discipline),
+        circuit_stage=st.ListCircuit(spec.discipline or discipline, circuit_engine),
     )
 
 

@@ -3,9 +3,10 @@
 Port of the stages of `repro.pipeline.stages` that the ``ours`` scheme
 runs: `LPOrder` (per instance, solving its own LP when none is given, and
 batched), `GreedyAllocate.allocate_batch_arrays` and
-`ListCircuit.schedule_batch_arrays` (both disciplines, the pair-space
-calendar).  Allocation and circuits run batched only: a single instance
-is a one-member batch.  The other order stages (WSPT, FIFO) and the other
+`ListCircuit.schedule_batch_arrays` (both disciplines; the pair-space
+calendar, ``engine="kernel"``, or the flow-space one, ``engine="jax"``).
+Allocation and circuits run batched only: a single instance is a
+one-member batch.  The other order stages (WSPT, FIFO) and the other
 circuit stages (sequential, BvN, fluid) are not ported yet.
 """
 
@@ -17,7 +18,7 @@ import torch
 
 from repro_torch.core.ordering import lp_guided_order
 from repro_torch.pipeline.batch_alloc import allocate_batch_arrays
-from repro_torch.pipeline.batch_circuit import schedule_batch_arrays
+from repro_torch.pipeline.batch_circuit import check_engine, schedule_batch_arrays
 
 __all__ = ["LPOrder", "GreedyAllocate", "ListCircuit"]
 
@@ -73,17 +74,23 @@ class GreedyAllocate:
 
 
 class ListCircuit:
-    """Not-all-stop greedy port-matching list scheduler (Lines 16-30)."""
+    """Not-all-stop greedy port-matching list scheduler (Lines 16-30).
+
+    ``engine`` selects the calendar executor: ``"kernel"`` (pair space,
+    the `pair_resolve` kernel) or ``"jax"`` (flow space, the
+    `event_resolve` kernel); both give the same schedules.
+    """
 
     kind = "list"
 
-    def __init__(self, discipline: str = "greedy"):
+    def __init__(self, discipline: str = "greedy", engine: str = "kernel"):
         if discipline not in ("reserving", "greedy"):
             raise ValueError(f"unknown discipline {discipline!r}")
         self.discipline = discipline
+        self.engine = check_engine(engine)
 
     def schedule_batch_arrays(self, ensemble, alloc_batch):
         """Padded tensors in, per-instance ``(schedules, ccts)`` out."""
         return schedule_batch_arrays(
-            ensemble, alloc_batch, discipline=self.discipline
+            ensemble, alloc_batch, discipline=self.discipline, engine=self.engine
         )

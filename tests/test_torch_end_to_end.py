@@ -3,7 +3,8 @@
 * With the reference's exact LP solutions injected, `run_batch` gives
   CCTs (and orders, allocations, schedules) bit-identical to
   `repro.core.scheduler._legacy_run` -- the oracle the reference's own
-  `run_batch` is held to -- under both disciplines.  Tolerance: none.
+  `run_batch` is held to -- under both disciplines and both calendar
+  engines (``"kernel"``, ``"jax"``).  Tolerance: none.
 * With the port's own LP, every schedule validates and every weighted CCT
   is within (8K+1) x the exact LP optimum (the paper's bound).
 """
@@ -38,11 +39,12 @@ def ensemble():
     return refs, [ref_lp.solve_exact(r) for r in refs]
 
 
+@pytest.mark.parametrize("engine", ["kernel", "jax"])
 @pytest.mark.parametrize("discipline", DISCIPLINES)
-def test_injected_lp_bit_identical_to_legacy_run(ensemble, discipline):
+def test_injected_lp_bit_identical_to_legacy_run(ensemble, discipline, engine):
     refs, sols = ensemble
     insts = [from_reference(r, "cpu") for r in refs]
-    got = get_pipeline("ours", discipline=discipline).run_batch(
+    got = get_pipeline("ours", discipline=discipline, circuit_engine=engine).run_batch(
         insts, [from_reference(s, "cpu") for s in sols], device="cpu"
     )
     for inst, sol, res in zip(refs, sols, got):

@@ -46,15 +46,15 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_new_modules_are_checked():
-    """The per-instance LP, the LP-guided order, the certificate and the
-    serving path (configs, models, flash kernel, serve) are among the
-    files the syntax check reads."""
+    """The per-instance LP, the LP-guided order, the certificate, the
+    serving path (configs, models, flash kernel, serve) and the flow-space
+    calendar's kernel are among the files the syntax check reads."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in (
         "core/lp.py", "core/ordering.py", "core/lower_bounds.py", "core/theory.py",
         "configs/base.py", "configs/__init__.py", "configs/gemma3_1b.py",
         "kernels/flash_attention.py", "models/layers.py", "models/model.py",
-        "launch/serve.py",
+        "launch/serve.py", "kernels/event_resolve.py",
     ):
         assert f"src/repro_torch/{mod}" in names
 
@@ -104,6 +104,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: lp_guided_order(inst, method="subgradient"),
         lambda: get_pipeline("ours").run(inst),
         lambda: get_pipeline("ours").run(inst, sol),
+        lambda: get_pipeline("ours", circuit_engine="jax").run(inst, sol),
+        lambda: get_pipeline("ours", circuit_engine="jax").run_batch([inst], [sol]),
         lambda: get_pipeline("ours", lp_method="subgradient").run_batch([inst]),
         lambda: get_pipeline("ours").order_stage.order(inst),
         lambda: build_model(cfg),
