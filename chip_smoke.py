@@ -62,7 +62,26 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    `flash_attention` against its twin at the serving shapes (prefill
    (4, 4, 600, 617, 256) and decode (4, 4, 1, 617, 256) at offset 600,
    with and without the window) and at cases of the reference's sweep;
-7. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+7. serving ``xlstm-1.3b`` at full width (48 layers: 42 mLSTM and 6 sLSTM,
+   d_model 2048, 4 heads of 512, vocab 50304; random weights from a seed)
+   through the same `serve`, 8 requests of 600 prompt tokens (two full
+   chunks of 256 and a padded one), 4 slots, 16 new tokens each: every
+   request gets its tokens, every logit is finite, the `mlstm_chunk`
+   kernel launched exactly waves x (1 + max_new) x 42 = 1428 times and no
+   other kernel; the sLSTM loop's share of a prefill wave and the largest
+   |S| of the carried states; decode after a prefill of P - 1 tokens
+   within 1e-3 of the largest logit of the teacher-forced forward on the
+   served weights in f32, and within 4 bf16 units of it in bf16 on the
+   served weights of the first 8 layers (the 48-layer bf16 gap is logged
+   beside the spread of two valid forwards, chunks of 128 and 256); a
+   reduced xLSTM in
+   f32 (``mlstm_chunk`` 8, prompts of 36) serves identical tokens on the
+   card and on the host, logits within 2e-4; one decode tick profiled.
+   The kernel phase (2) holds `mlstm_chunk` against its twin at the
+   serving shapes (prefill (16, 768, 512) with C = 256, decode (16, 1,
+   512)), each with a zero and a carried state in f32 and bf16, and at the
+   reference's f32 cases (`tests/test_mlstm_kernel.py`);
+8. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero as well without a CUDA device.
@@ -70,6 +89,7 @@ result.  It exits non-zero as well without a CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -500,6 +520,110 @@ def phase_flash_kernel(torch):
     )
 
 
+# The reference's mLSTM kernel cases (tests/test_mlstm_kernel.py):
+# BH, S, Dh, chunk.
+MLSTM_CASES = [(2, 64, 32, 16), (1, 128, 64, 32), (3, 96, 16, 32), (2, 256, 128, 128)]
+
+
+def mlstm_inputs(torch, BH, S, Dh, dtype, carried, gen):
+    """The reference test's distributions on the card: q, v N(0, 1), k
+    N(0, 1/Dh), log_f = log U(0.8, 0.999), log_i U(-2, 1); a carried state
+    (S0 N(0, 0.01), n0 N(0, 1)) or None."""
+    dev = torch.device("cuda")
+    q = torch.randn((BH, S, Dh), generator=gen)
+    k = torch.randn((BH, S, Dh), generator=gen) / Dh**0.5
+    v = torch.randn((BH, S, Dh), generator=gen)
+    log_f = torch.log(0.8 + 0.199 * torch.rand((BH, S), generator=gen))
+    log_i = -2.0 + 3.0 * torch.rand((BH, S), generator=gen)
+    args = [t.to(dev, dtype) for t in (q, k, v)] + [t.to(dev) for t in (log_f, log_i)]
+    if not carried:
+        return args, None
+    return args, ((0.1 * torch.randn((BH, Dh, Dh), generator=gen)).to(dev),
+                  torch.randn((BH, Dh), generator=gen).to(dev))
+
+
+def mlstm_bytes_ops(BH, S, Dh, C, itemsize, carried):
+    """Bytes, operations and their peak.  Bytes: q, k, v read and h written
+    once, the two f32 gates, the f32 state written (and read when carried).
+    Operations per chunk: 2 Dh flops per live pair t >= s for q k^T and
+    again for the scores against v (the kernel skips tiles above the
+    diagonal), 2 C Dh^2 each for inter and the state update.  q k^T takes
+    q and k as they come: with bf16 operands it is counted at the bf16
+    tensor-core rate (their products are exact in f32); every other
+    product has an f32 operand and is counted at the f32 rate.  The peak
+    returned puts all operations in the sum of those two times."""
+    state = 4 * BH * (Dh * Dh + Dh)
+    nbytes = 4 * BH * S * Dh * itemsize + 2 * 4 * BH * S + state * (2 if carried else 1)
+    items = BH * (S // C)
+    pairs = C * (C + 1) // 2
+    qk = items * 2 * pairs * Dh
+    rest = items * 2 * (pairs * Dh + 2 * C * Dh * Dh)
+    qk_peak = BF16_OPS_PER_S if itemsize == 2 else F32_OPS_PER_S
+    return nbytes, qk + rest, (qk + rest) / (qk / qk_peak + rest / F32_OPS_PER_S)
+
+
+def phase_mlstm_kernel(torch):
+    """`mlstm_chunk` against its twin: at the serving shapes with a zero and
+    a carried state, in f32 and bf16, and at the reference's f32 cases.
+    f32: h, S and n within 2e-4 (rtol and atol, the reference's tolerance
+    for its kernel); bf16: S and n within 2e-4 (both widen the same bf16
+    values), h within one bf16 rounding of the twin's (2**-7 of the value)
+    plus 2e-4, since both round an f32 result once.  Then the serving
+    shapes timed in bf16: prefill from zeros, decode from a carried state."""
+    from repro_torch.kernels import mlstm_chunk as mc
+
+    gen = torch.Generator().manual_seed(18)
+    serving = {"prefill": (16, 768, 512, 256), "decode": (16, 1, 512, 256)}
+    cases = [*serving.items(), *(("reference", c) for c in MLSTM_CASES)]
+    err, inputs = 0.0, {}
+    for label, (BH, S, Dh, C) in cases:
+        dtypes = (torch.float32,) if label == "reference" else (torch.float32, torch.bfloat16)
+        for dtype in dtypes:
+            for carried in (False, True):
+                args, state = mlstm_inputs(torch, BH, S, Dh, dtype, carried, gen)
+                h, (s_fin, n_fin) = mc.mlstm_chunk(*args, state=state, chunk=C)
+                torch.cuda.synchronize()
+                h_p, (s_p, n_p) = mc.mlstm_chunk_plain(*args, state=state, chunk=C)
+                what = f"mlstm_chunk {label} {(BH, S, Dh, C)} {str(dtype)[6:]} " + (
+                    "carried" if carried else "zero") + " state"
+                pairs = [("S", s_fin, s_p), ("n", n_fin, n_p)]
+                if dtype == torch.float32:
+                    pairs.append(("h", h, h_p))
+                for name, a, b in pairs:
+                    e = (a - b).abs()
+                    check(bool((e <= 2e-4 + 2e-4 * b.abs()).all()),
+                          f"{what}: {name} off by {float(e.max())}")
+                    err = max(err, float(e.max()))
+                eh = (h.float() - h_p.float()).abs()
+                if dtype == torch.bfloat16:
+                    check(bool((eh <= 2**-7 * h_p.float().abs() + 2e-4).all()),
+                          f"{what}: h beyond one bf16 rounding")
+                log(f"{what}: max abs err h {float(eh.max()):.3g}, S "
+                    f"{float((s_fin - s_p).abs().max()):.3g}, n "
+                    f"{float((n_fin - n_p).abs().max()):.3g}")
+                if label != "reference" and dtype == torch.bfloat16:
+                    inputs[label, carried] = (args, state, C)
+    t = None
+    for label, carried in (("prefill", False), ("decode", True)):
+        args, state, C = inputs[label, carried]
+        BH, S, Dh = args[0].shape
+        t = timed_call(
+            torch, f"mlstm_chunk {label} (BH={BH}, S={S}, Dh={Dh}, C={min(C, S)}, "
+            f"{'carried' if carried else 'zero'} state, bf16)", "mlstm_chunk",
+            lambda: mc.mlstm_chunk(*args, state=state, chunk=C),
+            lambda: mc.mlstm_chunk_plain(*args, state=state, chunk=C),
+            None, *mlstm_bytes_ops(BH, S, Dh, min(C, S), 2, carried),
+        )
+    # The row carries the most launched shape: a decode step; max_abs_err
+    # is the largest f32 difference (h, S, n) and bf16 state difference.
+    return dict(
+        name="mlstm_chunk", route="cuda",
+        source="src/repro_torch/csrc/mlstm_chunk.cu",
+        replaces="src/repro/kernels/mlstm_chunk/kernel.py:92",
+        max_abs_err=err, **t,
+    )
+
+
 def schedule_tables(pairs):
     """Calendar member tables (the flows of each (instance, core), in
     priority order) of finished runs: ``pairs`` holds (instance, result)."""
@@ -621,7 +745,7 @@ def phase_event_kernel(torch, shapes):
 def counters():
     """Kernel name -> (module, name of its launch counter)."""
     from repro_torch.kernels import (
-        event_resolve, flash_attention, lp_terms, pair_resolve, port_stats,
+        event_resolve, flash_attention, lp_terms, mlstm_chunk, pair_resolve, port_stats,
     )
 
     return dict(
@@ -631,6 +755,7 @@ def counters():
         pair_resolve=(pair_resolve, "LAUNCHES"),
         event_resolve=(event_resolve, "LAUNCHES"),
         flash_attention=(flash_attention, "LAUNCHES"),
+        mlstm_chunk=(mlstm_chunk, "LAUNCHES"),
     )
 
 
@@ -1150,6 +1275,216 @@ def phase_serving(torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: serving xlstm-1.3b at full width through the mLSTM kernel
+# ---------------------------------------------------------------------------
+
+
+def phase_serving_xlstm(torch):
+    """`serve` on xlstm-1.3b at full width, with launch counts; the sLSTM
+    loop's share of a prefill; teacher forcing; card against host on a
+    reduced f32 xLSTM; one profiled decode tick."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.model import build_model, param_bytes, param_count
+
+    cfg = get_arch("xlstm-1.3b")
+    n_mlstm = cfg.layer_kinds.count("mlstm")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SERVE["seed"]))
+    torch.cuda.synchronize()
+    log(f"serving {cfg.name}: {param_count(params)} parameters, "
+        f"{param_bytes(params) / 1e9:.3f} GB held (bf16 matrices, f32 norms and "
+        f"sLSTM r), init {time.perf_counter() - t0:.2f} s; layers "
+        f"{n_mlstm} mLSTM + {cfg.layer_kinds.count('slstm')} sLSTM")
+    # One warm-up wave (cuBLAS handles, allocator), outside the counted run.
+    serve(cfg, params, **{**SERVE, "requests": 1, "max_new": 1})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = serve(cfg, params, **SERVE)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    n_req, new = SERVE["requests"], SERVE["max_new"]
+    waves = -(-n_req // SERVE["slots"])
+    check((res.waves, res.ticks, res.tokens) == (waves, waves * new, n_req * new),
+          f"xlstm serve: waves/ticks/tokens {res.waves}/{res.ticks}/{res.tokens}")
+    for rid, toks in res.produced.items():
+        check(len(toks) == new and all(0 <= t < cfg.vocab_size for t in toks),
+              f"xlstm serve: request {rid} got {toks}")
+    for w, wave in enumerate(res.logits):
+        for lg in wave:
+            check(lg.shape[-1] == cfg.vocab_size and bool(torch.isfinite(lg).all()),
+                  f"xlstm serve: wave {w} logits not finite or of the wrong shape")
+    expect = res.waves * (1 + new) * n_mlstm
+    check(counts["mlstm_chunk"] == expect,
+          f"xlstm serve: mlstm_chunk launched {counts['mlstm_chunk']} times, "
+          f"expected {expect} = waves x (1 + max_new) x mLSTM layers")
+    others = {k: v for k, v in counts.items() if k != "mlstm_chunk"}
+    check(not any(others.values()), f"xlstm serve: other kernels launched {others}")
+    ticks_ms = sorted(1e3 * t for t in res.tick_s)
+    log(f"serving {cfg.name}: {n_req} requests x {new} tokens, prompts of "
+        f"{SERVE['prompt_len']}, {SERVE['slots']} slots: {res.waves} waves, "
+        f"{res.ticks} ticks, {res.tokens} tokens in {res.seconds:.4f} s "
+        f"({res.tokens / res.seconds:.2f} tokens/s)")
+    log(f"serving {cfg.name}: prefill s per wave {[round(t, 4) for t in res.prefill_s]}; "
+        f"decode ms per tick median {statistics.median(ticks_ms):.3f} "
+        f"(min {ticks_ms[0]:.3f}, max {ticks_ms[-1]:.3f}); peak device memory "
+        f"{peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated)")
+    log(f"serving {cfg.name}: launches {json.dumps(counts)} (mlstm_chunk expected "
+        f"{expect} = {res.waves} waves x (1 + {new}) x {n_mlstm} mLSTM layers)")
+    log(f"serving {cfg.name}: greedy tokens of request 0: {res.produced[0]}")
+
+    # One prefill wave again, each sLSTM layer timed between synchronizes:
+    # the host-bound loop's share of the wave.  Its logits are the
+    # teacher-forced forward over all P tokens.
+    P = SERVE["prompt_len"]
+    rng = np.random.default_rng(SERVE["seed"] + 1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE["slots"], P))).cuda()
+    slstm_s = []
+    slstm_apply = X.slstm_apply
+
+    def timed_slstm(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = slstm_apply(*args, **kwargs)
+        torch.cuda.synchronize()
+        slstm_s.append(time.perf_counter() - t)
+        return out
+
+    X.slstm_apply = timed_slstm
+    try:
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache = model.init_cache(SERVE["slots"], P + 1)
+            logits, cache = model.forward(params, {"tokens": tokens}, cache=cache, pos=0)
+            want = logits[:, -1].float()
+            want.argmax(-1).cpu()
+            wall = time.perf_counter() - t0
+            del logits
+    finally:
+        X.slstm_apply = slstm_apply
+    states = [c for c, kind in zip(cache, cfg.layer_kinds) if kind == "mlstm"]
+    s_max = max(float(S.abs().max()) for S, _ in states)
+    n_max = max(float(n.abs().max()) for _, n in states)
+    check(all(bool(torch.isfinite(S).all() and torch.isfinite(n).all()) for S, n in states),
+          "xlstm prefill: a carried mLSTM state is not finite")
+    log(f"prefill wave ({SERVE['slots']} x {P} tokens, synchronized per sLSTM layer): "
+        f"{wall:.4f} s, of which the {len(slstm_s)} sLSTM layers {sum(slstm_s):.4f} s "
+        f"({100 * sum(slstm_s) / wall:.1f} %, {P} steps each); largest |S| of the "
+        f"carried mLSTM states {s_max:.4g}, largest |n| {n_max:.4g}")
+
+    # Decode after a prefill of P - 1 tokens against the teacher-forced
+    # forward: the carried state through the kernel at S = C = 1.  Gated in
+    # f32 on the same weights, within 1e-3 of the largest logit, and in
+    # bf16 on the served weights of the first unit (8 layers: 7 mLSTM, 1
+    # sLSTM), within 4 bf16 units of the largest logit as for gemma3.  Over
+    # all 48 layers one bf16 rounding grows about 2**8 with random weights:
+    # two equally valid forwards, chunks of 256 and of 128, differ by more
+    # than the decode does, so that gap is logged beside that spread.
+    def decode_after_prefill(m, p):
+        short = m.init_cache(SERVE["slots"], P)
+        _, short = m.forward(p, {"tokens": tokens[:, : P - 1]}, cache=short, pos=0)
+        got, _ = m.decode_step(p, short, {"tokens": tokens[:, P - 1 :]}, P - 1)
+        return got.float()
+
+    unit = len(cfg.layer_unit)
+    with torch.inference_mode():
+        model8 = build_model(dataclasses.replace(cfg, num_layers=unit))
+        params8 = {**params, "layers": params["layers"][:unit]}
+        want8 = model8.forward(params8, {"tokens": tokens})[0][:, -1].float()
+        got8 = decode_after_prefill(model8, params8)
+        del params8
+        got = decode_after_prefill(model, params)
+        halves = build_model(dataclasses.replace(cfg, mlstm_chunk=128))
+        other = halves.forward(params, {"tokens": tokens})[0][:, -1].float()
+        model32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+        p32 = model32.cast(params)
+        logits32 = model32.forward(p32, {"tokens": tokens})[0]
+        want32 = logits32[:, -1].clone()
+        del logits32
+        got32 = decode_after_prefill(model32, p32)
+        del p32
+    diff32 = float((got32 - want32).abs().max())
+    tol32 = 1e-3 * float(want32.abs().max())
+    check(diff32 <= tol32,
+          f"xlstm teacher forcing (f32): decode differs from forward by {diff32} > {tol32}")
+    diff8 = float((got8 - want8).abs().max())
+    tol8 = 4 * bf16_units(torch, want8)
+    check(diff8 <= tol8,
+          f"xlstm teacher forcing (bf16, first {unit} layers): decode differs from "
+          f"forward by {diff8} > {tol8}")
+    diff = (got - want).abs()
+    log(f"xlstm teacher forcing ({SERVE['slots']} x {P} tokens), bf16 served weights of "
+        f"the first {unit} layers: decode vs forward max abs {diff8:.4g}, bound {tol8:.4g} "
+        f"(4 bf16 units at |logit| max {float(want8.abs().max()):.4g}); argmax equal in "
+        f"{int((got8.argmax(-1) == want8.argmax(-1)).sum())} of {SERVE['slots']} rows")
+    log(f"xlstm teacher forcing ({SERVE['slots']} x {P} tokens), f32 weights of the served "
+        f"model: decode vs forward max abs {diff32:.4g}, bound {tol32:.4g} (1e-3 of |logit| "
+        f"max {float(want32.abs().max()):.4g}); argmax equal in "
+        f"{int((got32.argmax(-1) == want32.argmax(-1)).sum())} of {SERVE['slots']} rows")
+    log(f"xlstm teacher forcing, bf16 (served): decode vs forward max abs "
+        f"{float(diff.max()):.4g}, mean {float(diff.mean()):.4g} at |logit| max "
+        f"{float(want.abs().max()):.4g} (4 bf16 units: {4 * bf16_units(torch, want):.4g}); "
+        f"forward with chunks of 128 vs 256 max abs {float((other - want).abs().max()):.4g}; "
+        f"argmax equal in {int((got.argmax(-1) == want.argmax(-1)).sum())} of "
+        f"{SERVE['slots']} rows")
+
+    # Card against host: a reduced xLSTM in f32, the same parameters.
+    small = get_arch("xlstm-1.3b").reduced(vocab_size=512, compute_dtype="float32",
+                                           mlstm_chunk=8)
+    host = build_model(small, "cpu")
+    p_cpu = host.init(torch.Generator().manual_seed(0))
+    p_gpu = build_model(small).cast(p_cpu)
+    kw = dict(slots=4, requests=8, prompt_len=36, max_new=8, seed=0)
+    on_card = serve(small, p_gpu, **kw)
+    on_host = serve(small, p_cpu, device="cpu", **kw)
+    check(on_card.produced == on_host.produced,
+          "card and host serve different greedy tokens (reduced xLSTM, f32)")
+    worst = max(
+        float((a.cpu() - b).abs().max())
+        for wa, wb in zip(on_card.logits, on_host.logits) for a, b in zip(wa, wb)
+    )
+    check(worst <= 2e-4, f"xlstm card vs host logits differ by {worst} > 2e-4")
+    log(f"card vs host (reduced xLSTM, f32, mlstm_chunk {small.mlstm_chunk}, "
+        f"{kw['requests']} requests x {kw['max_new']} tokens, prompts of "
+        f"{kw['prompt_len']}): identical greedy tokens, logits max abs diff "
+        f"{worst:.3g} (bound 2e-4)")
+
+    # One decode tick profiled, on the state of the prefill of P tokens.
+    with torch.inference_mode():
+        step = want.argmax(-1, keepdim=True)
+
+        def tick():
+            lg, _ = model.decode_step(params, list(cache), {"tokens": step}, P)
+            lg.argmax(-1).cpu()
+
+        tick()
+        wall, kernels = profile_device(torch, tick)
+    busy = sum(t for t, _ in kernels.values())
+    by = {"mlstm_chunk": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
+    for name, (us, _) in kernels.items():
+        if "mlstm_chunk_kernel" in name:
+            by["mlstm_chunk"] += us
+        elif any(w in name.lower() for w in ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")):
+            by["matmul (cuBLAS)"] += us
+        else:
+            by["other"] += us
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:5]
+    log(f"xlstm profiled decode tick: wall {1e3 * wall:.3f} ms, device busy "
+        f"{busy / 1e3:.3f} ms ({100 * busy / 1e6 / wall:.1f} %), "
+        f"{sum(c for _, c in kernels.values())} device kernels; by kind (ms): "
+        + json.dumps({k: round(v / 1e3, 4) for k, v in by.items()}))
+    log("xlstm profiled decode tick top: " + "; ".join(
+        f"{k[:70]} {t / 1e3:.4f} ms x{c}" for k, (t, c) in top))
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1200,6 +1535,7 @@ def main() -> int:
          ("fb_full", fb_full)],
     )
     rows.append(phase_flash_kernel(torch))
+    rows.append(phase_mlstm_kernel(torch))
 
     # Phases 3 and 4: the main path, then GPU/CPU parity, on both ensembles;
     # each time under the pair engine, then the flow engine counted apart.
@@ -1243,11 +1579,15 @@ def main() -> int:
     # Phase 6: serving gemma3-1b at full width.
     serve_counts = phase_serving(torch)
 
-    # Phase 7: the kernels line (each kernel's launches on its main path),
+    # Phase 7: serving xlstm-1.3b at full width.
+    xlstm_counts = phase_serving_xlstm(torch)
+
+    # Phase 8: the kernels line (each kernel's launches on its main path),
     # then the result.
     counts["lp_terms"] = single_counts["lp_terms"]
     counts["event_resolve"] = flow_counts["event_resolve"]
     counts["flash_attention"] = serve_counts["flash_attention"]
+    counts["mlstm_chunk"] = xlstm_counts["mlstm_chunk"]
     for r in rows:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -1,15 +1,18 @@
 """Architecture registry of the port: --arch <id> -> exact public config.
 
 Copies of `repro.configs` for the architectures whose layer kinds the
-port runs (global and sliding-window GQA attention with a dense gated
-FFN).  The other seven come with their layer kinds (ROADMAP.md, Queue 1).
+port runs: global and sliding-window GQA attention with a dense gated FFN
+(gemma3-1b, stablelm-1.6b, phi3-medium-14b), and mLSTM and sLSTM blocks
+(xlstm-1.3b).  The other six come with their layer kinds (ROADMAP.md,
+Queue 1).
 """
 
-from repro_torch.configs import gemma3_1b, phi3_medium_14b, stablelm_1_6b
+from repro_torch.configs import gemma3_1b, phi3_medium_14b, stablelm_1_6b, xlstm_1_3b
 from repro_torch.configs.base import SHAPES, ModelConfig, ShapeSpec
 
 ARCHS: dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (stablelm_1_6b, phi3_medium_14b, gemma3_1b)
+    m.CONFIG.name: m.CONFIG
+    for m in (stablelm_1_6b, phi3_medium_14b, gemma3_1b, xlstm_1_3b)
 }
 
 

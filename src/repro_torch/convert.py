@@ -74,8 +74,10 @@ def params_from_reference(params: dict, cfg: ModelConfig, device: str | torch.de
     dict, its leaves as arrays NumPy can read: layer ``i`` of a config with
     a unit of ``u`` kinds repeated ``reps`` times sits at ``units[i % u]``,
     row ``i // u`` of every stacked leaf, for ``i < reps * u``, and at
-    ``rem[i - reps * u]`` after that.  Matrices and the embedding are held
-    in the compute dtype, norms in f32, on ``device``.
+    ``rem[i - reps * u]`` after that.  Each layer's blocks keep their names
+    (``attn`` and ``ffn``; ``mix`` for mLSTM and sLSTM).  Matrices and the
+    embedding are held in the compute dtype, norms and sLSTM's ``r`` in
+    f32, on ``device``.
     """
     model = build_model(cfg, device)
     u = len(tuple(cfg.layer_unit))

@@ -10,7 +10,10 @@
   ``repro/kernels/lp_terms``);
 * `repro_torch.kernels.flash_attention` -- GQA attention with causal and
   sliding-window masks, the serving path's kernel (from
-  ``repro/kernels/flash_attention``).
+  ``repro/kernels/flash_attention``);
+* `repro_torch.kernels.mlstm_chunk` -- the chunkwise mLSTM forward with a
+  carried (Dh, Dh) state, the xLSTM serving path's kernel (from
+  ``repro/kernels/mlstm_chunk``).
 
 Each wrapper launches its kernel for CUDA tensors, takes the plain twin for
 CPU tensors, and counts its launches in its module's ``LAUNCHES``.  The

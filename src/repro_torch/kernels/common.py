@@ -31,7 +31,7 @@ _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 _SOURCES = (
     "pair_resolve.cu", "event_resolve.cu", "port_stats.cu", "lp_terms.cu",
-    "flash_attention.cu",
+    "flash_attention.cu", "mlstm_chunk.cu",
 )
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,6 +50,8 @@ _SIGNATURES = {
     "lp_terms_batch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "lp_terms": (_P, _P, _P, _F, _F, _P, _P, _I, _I, _P),
     "flash_attention": (_P,) * 4 + (_I,) * 7 + (_L,) * 12 + (_I, _I, _I, _F, _P),
+    "mlstm_chunk": (_P,) * 10 + (_I,) * 5 + (_P,),
+    "mlstm_chunk_smem": (_I, _I, _P, _P),
 }
 
 _LIB: ctypes.CDLL | None = None

@@ -1,0 +1,169 @@
+"""`mlstm_chunk`: the chunkwise mLSTM forward with a carried state.
+
+Port of `repro.kernels.mlstm_chunk` (the Pallas kernel
+`mlstm_chunk_pallas`, `src/repro/kernels/mlstm_chunk/kernel.py`, body
+`_mlstm_kernel`).  q, k, v are (BH, S, Dh) in f32 or bf16; log_f and log_i
+are (BH, S) f32 log gates (``log_sigmoid`` of the forget logit, the clipped
+input logit); ``state`` is ``(S0 (BH, Dh, Dh), n0 (BH, Dh))`` in f32, or
+``None`` for zeros.  Chunks of ``C = min(chunk, S)`` rows run in order, all
+in f32 (the caller pads S to a multiple of C, as the reference's
+`mlstm_apply` does):
+
+    F      = cumsum(log_f)
+    inter  = (q e^F) S_prev,  inter_n = (q e^F) . n_prev
+    A[t,s] = e^{F_t - F_s + log_i_s} for s <= t, else 0
+    scores = (q k^T) o A
+    h      = (inter + scores v) / max(|inter_n + sum_s scores|, 1)
+    S      = e^{F_C} S_prev + (k w)^T v,   n = e^{F_C} n_prev + sum_s k w,
+             w = e^{F_C - F + log_i}
+
+Returns ``(h (BH, S, Dh) in q's dtype, (S (BH, Dh, Dh), n (BH, Dh)) f32)``.
+With a zero state it computes what `mlstm_chunk_pallas` computes (which
+always starts from zeros); with a state, what the reference model's
+`_mlstm_chunk_scan` computes, so serving carries the state from prefill
+into every decode step through the kernel.
+
+CUDA tensors launch the hand-written kernel (``csrc/mlstm_chunk.cu``);
+CPU tensors take `mlstm_chunk_plain`, the same arithmetic step by step.
+The kernel is bound by operations at prefill (f32 products on CUDA cores)
+and by the state's bytes at decode; its design (the state's value columns
+split over blocks, each block recomputing its chunk's scores) is in the
+source.  `LAUNCHES` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels.common import launch, stream_of
+
+__all__ = ["mlstm_chunk", "mlstm_chunk_plain", "block_smem", "LAUNCHES"]
+
+#: Kernel launches in this process (CPU calls are not counted).
+LAUNCHES = 0
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.lru_cache(maxsize=None)
+def block_smem(device: int, Dh: int, C: int) -> tuple[int, int]:
+    """(bytes of shared memory one block of the kernel takes at (Dh, C),
+    the most a block may take on CUDA device ``device``), as the kernel's
+    source computes them."""
+    need, limit = ctypes.c_longlong(), ctypes.c_int()
+    with torch.cuda.device(device):
+        launch("mlstm_chunk_smem", Dh, C, ctypes.byref(need), ctypes.byref(limit))
+    return need.value, limit.value
+
+
+def mlstm_chunk_plain(q, k, v, log_f, log_i, state=None, chunk: int = 256):
+    """Plain PyTorch twin of the kernel: the chunk loop of the reference's
+    `_mlstm_chunk_scan` (and `_mlstm_kernel`) per (b, h), in f32."""
+    BH, S, Dh = q.shape
+    C = min(chunk, S)
+    f32 = torch.float32
+    if state is None:
+        S_prev = torch.zeros((BH, Dh, Dh), dtype=f32, device=q.device)
+        n_prev = torch.zeros((BH, Dh), dtype=f32, device=q.device)
+    else:
+        S_prev, n_prev = (t.to(f32) for t in state)
+    causal = torch.ones((C, C), dtype=torch.bool, device=q.device).tril()
+    hs = []
+    for c0 in range(0, S, C):
+        rows = slice(c0, c0 + C)
+        qc, kc, vc = (t[:, rows].to(f32) for t in (q, k, v))
+        lf, li = log_f[:, rows].to(f32), log_i[:, rows].to(f32)
+        F = torch.cumsum(lf, dim=1)  # (BH, C)
+        F_total = F[:, -1]
+        q_dec = qc * torch.exp(F)[..., None]
+        inter = q_dec @ S_prev
+        inter_n = (q_dec @ n_prev[..., None])[..., 0]
+        gate = F[:, :, None] - F[:, None, :] + li[:, None, :]
+        A = torch.where(causal, torch.exp(gate), 0.0)  # select: masked exps may be inf
+        scores = (qc @ kc.transpose(1, 2)) * A
+        num = inter + scores @ vc
+        den = inter_n + scores.sum(dim=2)
+        hs.append((num / torch.clamp(den.abs(), min=1.0)[..., None]).to(q.dtype))
+        kw = kc * torch.exp(F_total[:, None] - F + li)[..., None]
+        S_prev = S_prev * torch.exp(F_total)[:, None, None] + kw.transpose(1, 2) @ vc
+        n_prev = n_prev * torch.exp(F_total)[:, None] + kw.sum(dim=1)
+    return torch.cat(hs, dim=1), (S_prev, n_prev)
+
+
+def _check(q, k, v, log_f, log_i, state, chunk) -> int:
+    """Validate the operands; return the chunk length C."""
+    if q.dim() != 3:
+        raise ValueError(f"mlstm_chunk: q must be (BH, S, Dh), got {tuple(q.shape)}")
+    BH, S, Dh = q.shape
+    for name, t in (("k", k), ("v", v)):
+        if t.shape != q.shape:
+            raise ValueError(
+                f"mlstm_chunk: {name} must have q's shape {tuple(q.shape)}, got {tuple(t.shape)}"
+            )
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"mlstm_chunk: q must be float32 or bfloat16, got {q.dtype}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise TypeError(f"mlstm_chunk: {name} is {t.dtype}, q is {q.dtype}")
+    operands = [("log_f", log_f, (BH, S)), ("log_i", log_i, (BH, S))]
+    if state is not None:
+        if len(state) != 2:
+            raise ValueError("mlstm_chunk: state must be (S0, n0)")
+        operands += [("S0", state[0], (BH, Dh, Dh)), ("n0", state[1], (BH, Dh))]
+    for name, t, shape in operands:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"mlstm_chunk: {name} must be {shape}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"mlstm_chunk: {name} must be float32, got {t.dtype}")
+    for name, t in [("k", k), ("v", v)] + [(n, t) for n, t, _ in operands]:
+        if t.device != q.device:
+            raise ValueError(f"mlstm_chunk: {name} is on {t.device}, q on {q.device}")
+    if S < 1 or chunk < 1:
+        raise ValueError(f"mlstm_chunk: need S >= 1 and chunk >= 1, got S={S}, chunk={chunk}")
+    C = min(chunk, S)
+    if S % C:
+        raise ValueError(f"mlstm_chunk: S={S} is not a multiple of chunk={C} (pad upstream)")
+    if not (Dh in (16, 32) or (Dh % 64 == 0 and Dh <= 512)):
+        raise ValueError(
+            f"mlstm_chunk: head dim Dh={Dh} not taken (16, 32 or a multiple of 64 up to 512)"
+        )
+    if not 1 <= BH <= 65535:
+        raise ValueError(f"mlstm_chunk: BH={BH} outside the grid's 1 .. 65535")
+    return C
+
+
+def mlstm_chunk(q, k, v, log_f, log_i, state=None, chunk: int = 256):
+    """q/k/v: (BH, S, Dh); log_f/log_i: (BH, S) f32; state: (S0, n0) f32 or
+    None.  Returns (h in q's dtype, (S, n) f32)."""
+    global LAUNCHES
+    C = _check(q, k, v, log_f, log_i, state, chunk)
+    if q.device.type == "cpu":
+        return mlstm_chunk_plain(q, k, v, log_f, log_i, state, C)
+    if q.device.type != "cuda":
+        raise ValueError(f"mlstm_chunk: unsupported device {q.device}")
+    BH, S, Dh = q.shape
+    need, limit = block_smem(q.device.index, Dh, C)
+    if need > limit:
+        raise ValueError(
+            f"mlstm_chunk: chunk={C} with Dh={Dh} needs {need} bytes of shared "
+            f"memory, more than a block's {limit} on {q.device}"
+        )
+    q, k, v, log_f, log_i = (t.contiguous() for t in (q, k, v, log_f, log_i))
+    s0, n0 = (None, None) if state is None else (t.contiguous() for t in state)
+    for name, t in (("q", q), ("k", k), ("v", v), ("S0", s0)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"mlstm_chunk: {name} must be 16-byte aligned")
+    h = torch.empty_like(q)
+    s_out = torch.empty((BH, Dh, Dh), dtype=torch.float32, device=q.device)
+    n_out = torch.empty((BH, Dh), dtype=torch.float32, device=q.device)
+    launch(
+        "mlstm_chunk", q.data_ptr(), k.data_ptr(), v.data_ptr(), log_f.data_ptr(),
+        log_i.data_ptr(), None if s0 is None else s0.data_ptr(),
+        None if n0 is None else n0.data_ptr(), h.data_ptr(), s_out.data_ptr(),
+        n_out.data_ptr(), _DTYPE_CODES[q.dtype], BH, S, Dh, C, stream_of(q),
+    )
+    LAUNCHES += 1
+    return h, (s_out, n_out)

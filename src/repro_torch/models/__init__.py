@@ -1,7 +1,9 @@
-"""Dense decoder models of the port (`repro.models`, the dense part).
+"""Decoder models of the port (`repro.models`: the dense part and xLSTM).
 
 * `repro_torch.models.layers` -- RMSNorm, RoPE, GQA attention on the
   flash kernel, the gated FFN;
+* `repro_torch.models.xlstm` -- mLSTM blocks on the `mlstm_chunk` kernel
+  with a carried state, sLSTM blocks as a loop over positions;
 * `repro_torch.models.model` -- `build_model` and the `Model` it returns.
 """
 

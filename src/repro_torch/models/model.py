@@ -1,16 +1,22 @@
-"""Model assembly (port of `repro.models.model` for dense decoders).
+"""Model assembly (port of `repro.models.model` for dense decoders and
+xLSTM).
 
 A model is a stack of residual blocks described by ``cfg.layer_kinds``
-(gemma3 = 5 x "local" + 1 x "attn" repeating).  The reference groups layers
-into repeating units and runs ``lax.scan`` over stacked parameters to keep
-its compiled program small; the port runs eagerly, so layers are a Python
-loop over a per-layer parameter list (``params["layers"]``), and the cache
-is a per-layer list of ``{"k", "v"}``.
+(gemma3 = 5 x "local" + 1 x "attn" repeating; xlstm = 7 x "mlstm" + 1 x
+"slstm").  The reference groups layers into repeating units and runs
+``lax.scan`` over stacked parameters to keep its compiled program small;
+the port runs eagerly, so layers are a Python loop over a per-layer
+parameter list (``params["layers"]``), and the cache is a per-layer list of
+each layer's own state: ``{"k", "v"}`` for attention (written in place),
+``(S, n)`` for mLSTM and ``(c, n, h)`` for sLSTM (replaced by the new state
+at every call).
 
-The port runs the kinds "attn" (global) and "local" (sliding window) with
-the dense gated FFN.  Other kinds (MLA, mLSTM/sLSTM, RG-LRU, cross
-attention), mixtures of experts and the train path (``loss``) are not
-ported yet (ROADMAP.md, Queue 1): `build_model` raises for them.
+The port runs the kinds "attn" (global) and "local" (sliding window), each
+followed by the dense gated FFN, and "mlstm" and "slstm", which carry their
+own projections and have no FFN (``d_ff = 0`` is accepted for them only).
+Other kinds (MLA, RG-LRU, cross attention), mixtures of experts and the
+train path (``loss``) are not ported yet (ROADMAP.md, Queue 1):
+`build_model` raises for them.
 """
 
 from __future__ import annotations
@@ -22,15 +28,17 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import xlstm as X
 
 __all__ = ["Model", "build_model", "param_count", "param_bytes"]
 
-# Layer kinds the port runs.
-_PORTED_KINDS = ("attn", "local")
+# Layer kinds the port runs; the recurrent ones have no FFN.
+_PORTED_KINDS = ("attn", "local", "mlstm", "slstm")
+_RECURRENT_KINDS = ("mlstm", "slstm")
 
 
 class Model:
-    """A dense decoder on one device.  Built by `build_model`."""
+    """A decoder (dense or xLSTM) on one device.  Built by `build_model`."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         self.cfg = cfg
@@ -44,16 +52,21 @@ class Model:
     def init(self, generator: torch.Generator) -> dict[str, Any]:
         """Random parameters from ``generator``, which must be on the
         model's device: the reference's distributions (matrices N(0,
-        1/fan_in), embedding N(0, 0.02^2), norms zero), drawn in f32 and
-        held in the compute dtype (norms in f32)."""
+        1/fan_in), sLSTM's ``r`` N(0, 1/head_dim), embedding N(0, 0.02^2),
+        norms zero), drawn in f32 and held as `cast` holds them."""
         if generator.device.type != self.device.type:
             raise ValueError(
                 f"init: generator on {generator.device}, model on {self.device}"
             )
         cfg = self.cfg
         layers = []
-        for _ in range(cfg.num_layers):
-            layers.append({"attn": L.attn_init(generator, cfg), "ffn": L.ffn_init(generator, cfg)})
+        for kind in cfg.layer_kinds:
+            if kind == "mlstm":
+                layers.append({"mix": X.mlstm_init(generator, cfg)})
+            elif kind == "slstm":
+                layers.append({"mix": X.slstm_init(generator, cfg)})
+            else:
+                layers.append({"attn": L.attn_init(generator, cfg), "ffn": L.ffn_init(generator, cfg)})
         params = {
             "layers": layers,
             "final_norm": torch.zeros(cfg.d_model, device=self.device),
@@ -62,15 +75,16 @@ class Model:
         return self.cast(params)
 
     def cast(self, params: dict[str, Any]) -> dict[str, Any]:
-        """Matrices and the embedding in the compute dtype, norm weights in
-        f32, all on the model's device."""
-        def one(t: torch.Tensor) -> torch.Tensor:
-            dtype = torch.float32 if t.dim() == 1 else self.dtype
+        """Matrices and the embedding in the compute dtype; norm weights
+        and sLSTM's recurrent kernel ``r`` in f32, as the reference reads
+        them; all on the model's device."""
+        def one(t: torch.Tensor, name: str = "") -> torch.Tensor:
+            dtype = torch.float32 if t.dim() == 1 or name == "r" else self.dtype
             return t.to(device=self.device, dtype=dtype)
 
         return {
             "layers": [
-                {blk: {name: one(t) for name, t in p.items()} for blk, p in layer.items()}
+                {blk: {name: one(t, name) for name, t in p.items()} for blk, p in layer.items()}
                 for layer in params["layers"]
             ],
             "final_norm": one(params["final_norm"]),
@@ -89,27 +103,42 @@ class Model:
     def forward(self, params, batch, cache=None, pos: int = 0):
         """batch['tokens']: (B, S) int.  Returns (logits (B, S, V), cache);
         with a cache, K/V of positions pos .. pos + S - 1 are written into
-        it in place."""
+        it in place, and each recurrent layer's entry is replaced by its
+        state after position pos + S - 1."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         B, S = tokens.shape
         x = self._embed(params, tokens)
         positions = (pos + torch.arange(S, device=self.device))[None, :].expand(B, S)
         for i, (kind, p) in enumerate(zip(cfg.layer_kinds, params["layers"])):
-            window = cfg.window_size if kind == "local" else None
-            delta, _ = L.attn_apply(
-                p["attn"], x, cfg, positions=positions,
-                cache=None if cache is None else cache[i], pos=pos, window=window,
-            )
+            state = None if cache is None else cache[i]
+            if kind == "mlstm":
+                delta, state = X.mlstm_apply(p["mix"], x, cfg, state=state, chunk=cfg.mlstm_chunk)
+            elif kind == "slstm":
+                delta, state = X.slstm_apply(p["mix"], x, cfg, state=state)
+            else:
+                window = cfg.window_size if kind == "local" else None
+                delta, state = L.attn_apply(
+                    p["attn"], x, cfg, positions=positions, cache=state, pos=pos, window=window,
+                )
+            if cache is not None:
+                cache[i] = state
             x = x + delta
-            x = x + L.ffn_apply(p["ffn"], x, cfg)
+            if "ffn" in p:
+                x = x + L.ffn_apply(p["ffn"], x, cfg)
         return self._head(params, x), cache
 
-    def init_cache(self, batch: int, max_len: int) -> list[dict[str, torch.Tensor]]:
-        return [
-            L.attn_init_cache(self.cfg, batch, max_len, self.dtype, self.device)
-            for _ in range(self.cfg.num_layers)
-        ]
+    def init_cache(self, batch: int, max_len: int) -> list:
+        """Per layer: zero K/V of ``max_len`` positions for attention, the
+        zero recurrent state for mLSTM and sLSTM (f32, any length)."""
+        def one(kind: str):
+            if kind == "mlstm":
+                return X.mlstm_init_state(self.cfg, batch, self.device)
+            if kind == "slstm":
+                return X.slstm_init_state(self.cfg, batch, self.device)
+            return L.attn_init_cache(self.cfg, batch, max_len, self.dtype, self.device)
+
+        return [one(kind) for kind in self.cfg.layer_kinds]
 
     def prefill(self, params, batch):
         tokens = batch["tokens"]
@@ -138,8 +167,10 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
             f"{cfg.name}: {what} not ported yet (ROADMAP.md, Queue 1: the "
             f"remaining model families)"
         )
-    if cfg.d_ff <= 0:
-        raise NotImplementedError(f"{cfg.name}: blocks without an FFN are not ported")
+    if cfg.d_ff <= 0 and set(cfg.layer_kinds) - set(_RECURRENT_KINDS):
+        raise NotImplementedError(
+            f"{cfg.name}: attention blocks without an FFN are not ported"
+        )
     return Model(cfg, device)
 
 

@@ -47,14 +47,16 @@ def test_no_jax_or_reference_imports(path):
 
 def test_new_modules_are_checked():
     """The per-instance LP, the LP-guided order, the certificate, the
-    serving path (configs, models, flash kernel, serve) and the flow-space
-    calendar's kernel are among the files the syntax check reads."""
+    serving path (configs, models, flash kernel, serve), the flow-space
+    calendar's kernel and xLSTM (config, blocks, mLSTM kernel) are among the
+    files the syntax check reads."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in (
         "core/lp.py", "core/ordering.py", "core/lower_bounds.py", "core/theory.py",
         "configs/base.py", "configs/__init__.py", "configs/gemma3_1b.py",
         "kernels/flash_attention.py", "models/layers.py", "models/model.py",
         "launch/serve.py", "kernels/event_resolve.py",
+        "configs/xlstm_1_3b.py", "models/xlstm.py", "kernels/mlstm_chunk.py",
     ):
         assert f"src/repro_torch/{mod}" in names
 
@@ -64,7 +66,8 @@ def test_import_loads_no_jax():
         "import sys, repro_torch.pipeline, repro_torch.experiments, "
         "repro_torch.convert, repro_torch.traffic, repro_torch.core.ordering, "
         "repro_torch.core.lower_bounds, repro_torch.core.theory, "
-        "repro_torch.configs, repro_torch.models, repro_torch.launch.serve; "
+        "repro_torch.configs, repro_torch.models, repro_torch.models.xlstm, "
+        "repro_torch.kernels.mlstm_chunk, repro_torch.launch.serve; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -89,6 +92,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_arch("gemma3-1b").reduced()
+    xlstm = get_arch("xlstm-1.3b")
     inst = from_reference(random_instance(num_coflows=3, num_ports=2, seed=0), "cpu")
     sol = lp.LPSolution(
         completion=[1.0, 2.0, 3.0], precedence=None, objective=0.0, method="x"
@@ -111,6 +115,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: build_model(cfg),
         lambda: serve(cfg, None, slots=1, requests=1, prompt_len=2, max_new=1, seed=0),
         lambda: main(["--requests", "1", "--prompt-len", "2", "--max-new", "1"]),
+        lambda: build_model(xlstm),
+        lambda: serve(xlstm, None, slots=1, requests=1, prompt_len=2, max_new=1, seed=0),
+        lambda: main(["--arch", "xlstm-1.3b", "--requests", "1", "--prompt-len", "2",
+                      "--max-new", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -1,5 +1,5 @@
-"""The port's dense decoder (`repro_torch.models`) against the JAX package's
-(`repro.models`), on the host, given the same weights
+"""The port's decoders (`repro_torch.models`: dense and xLSTM) against the
+JAX package's (`repro.models`), on the host, given the same weights
 (`repro_torch.convert.params_from_reference`).
 
 Tolerances:
@@ -14,8 +14,18 @@ Tolerances:
 The reference runs both of its attention routes: ``attention_impl =
 "chunked"`` (pure jnp) and ``"flash"`` (the Pallas kernel in interpret
 mode), 40 tokens against the reduced window of 16.
+
+xLSTM runs with ``mlstm_chunk = 12``: every prompt length used here (40,
+23, 13, 20) then spans several chunks and ends in a padded one (40 is a
+multiple of 8).  In bf16 it is held against the reference run op by op
+(``jax.disable_jit()``), where every operation rounds to bf16 as the
+port's do: under jit, XLA on the host keeps some intermediates between
+fused operations in f32, and on the reduced xLSTM (eight recurrent layers
+whose gates amplify the residual stream's differences) the reference's
+own two modes then differ by up to about 0.2 at logits of order 0.5.
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -39,7 +49,16 @@ from repro_torch.models.model import build_model, param_bytes, param_count
 torch.set_num_threads(1)
 
 DENSE = ["gemma3-1b", "phi3-medium-14b", "stablelm-1.6b"]
+ALL = DENSE + ["xlstm-1.3b"]
 TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+XLSTM_CHUNK = 12
+
+
+def _reduced(archs, name, **kw):
+    """``archs[name].reduced(**kw)``; xLSTM with the tests' chunk."""
+    if name == "xlstm-1.3b":
+        kw.setdefault("mlstm_chunk", XLSTM_CHUNK)
+    return archs[name].reduced(**kw)
 
 
 def _pair(cfg: ModelConfig, seed: int = 0):
@@ -56,7 +75,7 @@ def _tokens(cfg, B, S, seed=1):
 
 
 # ------------------------------------------------------------------ configs
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ALL)
 def test_configs_match_reference(name):
     assert dataclasses.asdict(get_arch(name)) == dataclasses.asdict(REF_ARCHS[name])
     assert dataclasses.asdict(get_arch(name).reduced(vocab_size=512)) == dataclasses.asdict(
@@ -67,7 +86,7 @@ def test_configs_match_reference(name):
 
 
 def test_registry_and_shapes():
-    assert sorted(ARCHS) == DENSE
+    assert sorted(ARCHS) == ALL
     assert {k: dataclasses.astuple(v) for k, v in SHAPES.items()} == {
         k: dataclasses.astuple(v) for k, v in REF_SHAPES.items()
     }
@@ -82,24 +101,42 @@ def test_build_model_raises_for_unported_kinds():
     for over in (
         dict(layer_unit=("mla",)),
         dict(layer_unit=("rglru", "rglru", "local")),
+        dict(layer_unit=("mlstm", "rglru")),
         dict(num_experts=4, top_k=2),
         dict(layer_unit=("cross",), encoder_dim=32, encoder_len=8),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             build_model(dataclasses.replace(base, **over), "cpu")
+    # Recurrent blocks carry their own projections: d_ff = 0 is accepted
+    # for them, and still refused where an attention block needs its FFN.
+    build_model(get_arch("xlstm-1.3b").reduced(), "cpu")
+    with pytest.raises(NotImplementedError, match="without an FFN"):
+        build_model(dataclasses.replace(base, d_ff=0), "cpu")
+    with pytest.raises(NotImplementedError, match="without an FFN"):
+        build_model(dataclasses.replace(base, d_ff=0, layer_unit=("mlstm", "attn")), "cpu")
 
 
 # ------------------------------------------------------------------ forward
-@pytest.mark.parametrize("impl", ["chunked", "flash"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", ["gemma3-1b", "stablelm-1.6b"])
+# xLSTM has no attention, so ``attention_impl`` does not reach it: one impl.
+@pytest.mark.parametrize(
+    "name,dtype,impl",
+    [
+        (name, dtype, impl)
+        for name in ("gemma3-1b", "stablelm-1.6b", "xlstm-1.3b")
+        for dtype in ("float32", "bfloat16")
+        for impl in ("chunked", "flash")
+        if not (name == "xlstm-1.3b" and impl == "flash")
+    ],
+)
 def test_forward_matches_reference(name, dtype, impl):
     cfg = dataclasses.replace(
-        REF_ARCHS[name].reduced(compute_dtype=dtype), attention_impl=impl
+        _reduced(REF_ARCHS, name, compute_dtype=dtype), attention_impl=impl
     )
     ref, ref_params, port, params = _pair(cfg)
     tokens = _tokens(cfg, 2, 40)
-    want, _ = ref.forward(ref_params, {"tokens": jnp.asarray(tokens)})
+    op_by_op = name == "xlstm-1.3b" and dtype == "bfloat16"
+    with jax.disable_jit() if op_by_op else contextlib.nullcontext():
+        want, _ = ref.forward(ref_params, {"tokens": jnp.asarray(tokens)})
     got, cache = port.forward(params, {"tokens": tokens})
     assert cache is None
     assert got.dtype == getattr(torch, dtype) and got.shape == (2, 40, cfg.vocab_size)
@@ -121,15 +158,22 @@ def test_forward_matches_reference_with_remainder_layers():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ALL)
 def test_params_from_reference(name):
-    """Same count as the reference; matrices in the compute dtype, norms f32."""
+    """Same count as the reference; matrices in the compute dtype, norms f32
+    (and sLSTM's recurrent kernel ``r``, equal to the reference's)."""
     cfg = REF_ARCHS[name].reduced()
     _, ref_params, _, params = _pair(cfg)
     assert param_count(params) == ref_param_count(ref_params)
     layer = params["layers"][0]
-    assert layer["attn"]["wq"].dtype == torch.bfloat16
-    assert layer["ffn"]["norm"].dtype == torch.float32
+    mixer, norms = ("attn", "ffn") if "attn" in layer else ("mix", "mix")
+    assert layer[mixer]["wq"].dtype == torch.bfloat16
+    assert layer[norms]["norm"].dtype == torch.float32
+    if name == "xlstm-1.3b":
+        i = cfg.layer_kinds.index("slstm")
+        r = params["layers"][i]["mix"]["r"]
+        assert r.dtype == torch.float32
+        np.testing.assert_array_equal(r.numpy(), np.asarray(ref_params["units"][i]["mix"]["r"])[0])
     assert params["embed"].dtype == torch.bfloat16
     np.testing.assert_array_equal(
         params["embed"].to(torch.float32).numpy(),
@@ -139,7 +183,7 @@ def test_params_from_reference(name):
     assert param_bytes(params) < 0.6 * 4 * param_count(params)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ALL)
 def test_init_matches_reference_distributions(name):
     """The port's own init: the reference's shapes and scales (not its
     numbers: another generator)."""
@@ -148,18 +192,25 @@ def test_init_matches_reference_distributions(name):
     params = model.init(torch.Generator().manual_seed(0))
     ref_params = ref_build_model(REF_ARCHS[name].reduced()).init(jax.random.PRNGKey(0))
     assert param_count(params) == ref_param_count(ref_params)
-    wq = params["layers"][0]["attn"]["wq"]
+    layer = params["layers"][0]
+    wq = layer["attn" if "attn" in layer else "mix"]["wq"]
     assert wq.shape == (cfg.d_model, cfg.num_heads * cfg.head_dim)
     assert abs(float(wq.std()) * cfg.d_model**0.5 - 1.0) < 0.1
+    if "slstm" in cfg.layer_kinds:
+        r = params["layers"][cfg.layer_kinds.index("slstm")]["mix"]["r"]
+        assert r.shape == (cfg.num_heads, cfg.head_dim, 4 * cfg.head_dim)
+        assert r.dtype == torch.float32
+        assert abs(float(r.std()) * cfg.head_dim**0.5 - 1.0) < 0.1
     assert abs(float(params["embed"].std()) / 0.02 - 1.0) < 0.1
     assert not params["final_norm"].any()
 
 
 # ------------------------------------------------------------------- decode
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ALL)
 def test_decode_matches_full_forward(name):
-    """prefill(S-1) + decode_step == forward(S)[:, -1] (cache and offset)."""
-    cfg = get_arch(name).reduced(compute_dtype="float32")
+    """prefill(S-1) + decode_step == forward(S)[:, -1] (cache and offset;
+    for xLSTM the carried state)."""
+    cfg = _reduced(ARCHS, name, compute_dtype="float32")
     model = build_model(cfg, "cpu")
     params = model.init(torch.Generator().manual_seed(0))
     B, S = 2, 24
@@ -171,10 +222,10 @@ def test_decode_matches_full_forward(name):
     torch.testing.assert_close(got, full[:, -1], atol=5e-4, rtol=5e-4)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", ALL)
 def test_multi_step_decode(name):
     """Three sequential decode steps equal the teacher-forced forward."""
-    cfg = get_arch(name).reduced(compute_dtype="float32")
+    cfg = _reduced(ARCHS, name, compute_dtype="float32")
     model = build_model(cfg, "cpu")
     params = model.init(torch.Generator().manual_seed(1))
     B, S = 1, 16

@@ -2,7 +2,9 @@
 (`repro.launch.serve.main`'s loop over ``build_model(cfg).forward`` and a
 jitted ``decode_step``), on the same weights and the same prompts, in f32:
 the same greedy tokens, and logits within 2e-4 (as
-`tests/test_integration.py`) at every greedy choice.
+`tests/test_integration.py`) at every greedy choice.  xLSTM serves with
+``mlstm_chunk = 12``, so each 20-token prompt is a full chunk and a padded
+one, and every decode tick carries the recurrent state.
 """
 
 import dataclasses
@@ -57,9 +59,10 @@ def _reference_waves(cfg, params, *, slots, requests, prompt_len, max_new, seed)
     return produced, logits_out
 
 
-@pytest.mark.parametrize("name", ["gemma3-1b", "stablelm-1.6b"])
+@pytest.mark.parametrize("name", ["gemma3-1b", "stablelm-1.6b", "xlstm-1.3b"])
 def test_serve_matches_reference_wave_loop(name):
-    cfg = REF_ARCHS[name].reduced(vocab_size=512, compute_dtype="float32")
+    extra = dict(mlstm_chunk=12) if name == "xlstm-1.3b" else {}
+    cfg = REF_ARCHS[name].reduced(vocab_size=512, compute_dtype="float32", **extra)
     ref_params = ref_build_model(cfg).init(jax.random.PRNGKey(0))
     kw = dict(slots=2, requests=3, prompt_len=20, max_new=4, seed=7)
     want, want_logits = _reference_waves(cfg, ref_params, **kw)
