@@ -81,7 +81,24 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    serving shapes (prefill (16, 768, 512) with C = 256, decode (16, 1,
    512)), each with a zero and a carried state in f32 and bf16, and at the
    reference's f32 cases (`tests/test_mlstm_kernel.py`);
-8. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+8. training ``gemma3-1b`` at full width through
+   ``repro_torch.launch.train.main`` (``--full-config --compress-grads
+   --batch 4 --seq 1024 --steps 3``: past the 512 window, two loss chunks
+   of 512; f32 masters; random weights from a seed): every loss finite,
+   every one of the 236 parameter leaves gets a finite, nonzero gradient
+   on the card (attention's backward included), the new error feedback
+   within one quantization step of its row's scale (plus f32 rounding,
+   ``EF_BOUND``), `quantize` launched steps x leaves = 708 times,
+   `dequantize` twice that and `flash_attention` steps x 26 layers = 78;
+   ms per step, tokens/s, the compressed exchange's share and peak
+   memory; one more step profiled; a reduced f32 gemma3 trained 3
+   compressed steps on the card and on the host with the same host-drawn
+   noise: gradients within 1e-4 (step 0) and 1e-2 (later steps) of each
+   leaf's largest value, losses within 1e-4.  The kernel phase (2) holds
+   `quantize` and `dequantize` to their twins exactly at the reference's
+   cases, the embedding's (589,824, 512) rows, a padded norm leaf and
+   all-zero rows;
+9. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero as well without a CUDA device.
@@ -624,6 +641,62 @@ def phase_mlstm_kernel(torch):
     )
 
 
+# The reference's quant cases (tests/test_kernels.py::test_quant_matches_ref),
+# then the trainer's rows of 512: the embedding of gemma3-1b (262144 x 1152
+# values), a norm leaf (1152 values: 3 rows, the last one padded with
+# zeros) and rows that are all zero.
+QUANT_CASES = [(4, 128), (64, 512), (33, 300), (1, 64), (589_824, 512), (3, 512), (5, 512)]
+
+
+def phase_quant_kernel(torch):
+    """`quantize` and `dequantize` against their twins, exactly (every step
+    is one IEEE f32 operation on both routes), then both timed at the
+    embedding's rows, the largest leaf of the gradient exchange."""
+    from repro_torch.kernels import quant as qt
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(19)
+    inputs = None
+    for R, C in QUANT_CASES:
+        x = torch.randn((R, C), generator=gen) * 3.0
+        if (R, C) == (3, 512):
+            x[2, 128:] = 0.0  # 1152 values padded to 3 rows
+        if (R, C) == (5, 512):
+            x[1] = 0.0
+            x[4] = 0.0
+        x = x.to(dev)
+        noise = torch.rand((R, C), generator=gen).to(dev)
+        q, s = qt.quantize(x, noise)
+        d = qt.dequantize(q, s)
+        torch.cuda.synchronize()
+        q_p, s_p = qt.quantize_plain(x, noise)
+        d_p = qt.dequantize_plain(q_p, s_p)
+        check(torch.equal(q, q_p) and torch.equal(s, s_p), f"quantize {(R, C)} differs from its twin")
+        check(torch.equal(d, d_p), f"dequantize {(R, C)} differs from its twin")
+        zero = s == 1e-30
+        log(f"quant {(R, C)}: q, scale and dequantized values identical to the twins "
+            f"({int(zero.sum())} all-zero rows at the 1e-30 floor)")
+        if R == 589_824:
+            inputs = (x, noise, q, s)
+    x, noise, q, s = inputs
+    R, C = x.shape
+    t_q = timed_call(
+        torch, f"quantize embedding rows (R={R}, C={C}, f32 -> int8)", "quantize",
+        lambda: qt.quantize(x, noise), lambda: qt.quantize_plain(x, noise), None,
+        R * C * (4 + 4 + 1) + 4 * R, 0, F32_OPS_PER_S,
+    )
+    t_d = timed_call(
+        torch, f"dequantize embedding rows (R={R}, C={C}, int8 -> f32)", "dequantize",
+        lambda: qt.dequantize(q, s), lambda: qt.dequantize_plain(q, s),
+        lambda: torch.mul(q, s[:, None]), R * C * (1 + 4) + 4 * R, 0, F32_OPS_PER_S,
+    )
+    common = dict(route="cuda", source="src/repro_torch/csrc/quant.cu", max_abs_err=0.0)
+    return [
+        dict(name="quantize", replaces="src/repro/kernels/quant/kernel.py:40", **common, **t_q),
+        dict(name="dequantize", replaces="src/repro/kernels/quant/kernel.py:76", **common, **t_d),
+    ]
+
+
 def schedule_tables(pairs):
     """Calendar member tables (the flows of each (instance, core), in
     priority order) of finished runs: ``pairs`` holds (instance, result)."""
@@ -745,7 +818,7 @@ def phase_event_kernel(torch, shapes):
 def counters():
     """Kernel name -> (module, name of its launch counter)."""
     from repro_torch.kernels import (
-        event_resolve, flash_attention, lp_terms, mlstm_chunk, pair_resolve, port_stats,
+        event_resolve, flash_attention, lp_terms, mlstm_chunk, pair_resolve, port_stats, quant,
     )
 
     return dict(
@@ -756,6 +829,8 @@ def counters():
         event_resolve=(event_resolve, "LAUNCHES"),
         flash_attention=(flash_attention, "LAUNCHES"),
         mlstm_chunk=(mlstm_chunk, "LAUNCHES"),
+        quantize=(quant, "LAUNCHES_QUANTIZE"),
+        dequantize=(quant, "LAUNCHES_DEQUANTIZE"),
     )
 
 
@@ -1485,6 +1560,180 @@ def phase_serving_xlstm(torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: training gemma3-1b at full width with int8 gradient compression
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGV = ["--arch", "gemma3-1b", "--full-config", "--compress-grads", "--batch", "4",
+              "--seq", "1024", "--steps", "3", "--log-every", "1"]
+# One quantization step of the row's scale, plus the f32 roundings of
+# x / scale, of + noise, of q * scale and of the residual: at |x / scale|
+# up to 127 each is at most 2**-18 of the scale (PERF.md, section 6).
+EF_BOUND = 1 + 2**-16
+
+
+def row_scales(torch, g32):
+    """The quantizer's per-row scales of a flat f32 leaf in rows of 512."""
+    from repro_torch.kernels.quant import CHUNK, flat_rows
+
+    n = g32.numel()
+    rows = flat_rows(n)
+    xp = torch.nn.functional.pad(g32.reshape(-1), (0, rows * CHUNK - n)).view(rows, CHUNK)
+    amax = xp.abs().amax(dim=1)
+    return torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-30), rows
+
+
+def phase_training(torch):
+    """``repro_torch.launch.train.main`` on gemma3-1b at full width with
+    ``--compress-grads``: launch counts, gradients on every leaf, the error
+    feedback within one quantization step; timings, the exchange's share
+    and peak memory; one more step profiled; then card against host on a
+    reduced f32 gemma3 with the same host-drawn noise."""
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticTokens, make_batch_iterator
+    from repro_torch.launch import train as T
+    from repro_torch.launch.steps import make_compressed_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+
+    cfg = get_arch("gemma3-1b")
+    seen = {"leaves": set(), "worst_ef": 0.0, "steps": 0, "peaks": []}
+
+    def inspect(step, grads, errors, new_errors):
+        # The step's peak so far; the checks' own temporaries are left out.
+        seen["peaks"].append(torch.cuda.max_memory_allocated())
+        leaves = tree.leaves(grads)
+        seen["leaves"].add(len(leaves))
+        seen["steps"] += 1
+        for i, (g, e, e_new) in enumerate(zip(leaves, tree.leaves(errors),
+                                               tree.leaves(new_errors))):
+            check(bool(torch.isfinite(g).all()), f"train step {step}: leaf {i} gradient not finite")
+            check(bool(g.any()), f"train step {step}: leaf {i} ({tuple(g.shape)}) gradient is zero")
+            scale, rows = row_scales(torch, g.float() + e)
+            ratio = torch.nn.functional.pad(e_new.reshape(-1).abs(),
+                                            (0, rows * 512 - e_new.numel())).view(rows, 512)
+            ratio = float((ratio / scale[:, None]).max())
+            seen["worst_ef"] = max(seen["worst_ef"], ratio)
+            check(ratio <= EF_BOUND, f"train step {step}: leaf {i} error feedback "
+                  f"{ratio} quantization steps > {EF_BOUND}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = T.main(TRAIN_ARGV, inspect=inspect)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = max(seen["peaks"] + [torch.cuda.max_memory_allocated()])
+
+    steps = len(res.losses)
+    leaves = len(tree.leaves(res.params))
+    check(seen["leaves"] == {leaves} and seen["steps"] == steps,
+          f"train: inspected {seen} for {leaves} leaves and {steps} steps")
+    check(all(np.isfinite(res.losses)), f"train: losses {res.losses}")
+    want = dict(quantize=steps * leaves, dequantize=2 * steps * leaves,
+                flash_attention=steps * cfg.num_layers)
+    for name, n in want.items():
+        check(counts[name] == n, f"train: {name} launched {counts[name]} times, expected {n}")
+    others = {k: v for k, v in counts.items() if k not in want}
+    check(not any(others.values()), f"train: other kernels launched {others}")
+    batch, seq = 4, 1024
+    log(f"training {cfg.name} (full width, {leaves} leaves, f32 masters), batch {batch} x "
+        f"{seq} tokens, {steps} compressed steps in {wall:.3f} s (init and data included)")
+    for i, (loss, dt, ex) in enumerate(zip(res.losses, res.step_s, res.exchange_s)):
+        log(f"train step {i}: loss {loss:.6f} gnorm {res.grad_norms[i]:.4f} "
+            f"{1e3 * dt:.3f} ms ({batch * seq / dt:.1f} tokens/s), compressed exchange "
+            f"{1e3 * ex:.3f} ms ({100 * ex / dt:.1f} % of the step)")
+    log(f"training {cfg.name}: launches {json.dumps(counts)} (quantize = {steps} steps x "
+        f"{leaves} leaves, dequantize twice that, flash_attention = {steps} x "
+        f"{cfg.num_layers} layers); peak device memory {peak / 1e9:.3f} GB "
+        f"(torch.cuda.max_memory_allocated, the checks' temporaries left out); every "
+        f"leaf's gradient finite and nonzero; "
+        f"error feedback at most {seen['worst_ef']:.7f} quantization steps (bound {EF_BOUND})")
+
+    # One more step from the trained state through the trainer's own
+    # compressed step, profiled.
+    model = build_model(cfg)
+    compressed_step = make_compressed_step(
+        model, AdamW(schedule=cosine_schedule(3e-3, steps // 10 + 1, steps)))
+    params, opt_state, errors = res.params, res.opt_state, res.error_feedback
+    del res
+    data = SyntheticTokens(cfg.vocab_size, seq, batch, seed=1).next_batch()
+
+    def one_step():
+        nonlocal params, opt_state, errors
+        gen = torch.Generator(device="cuda").manual_seed(T.noise_seed(steps))
+        params, opt_state, errors, _ = compressed_step(params, opt_state, errors, data, gen)
+
+    wall, kernels = profile_device(torch, one_step)
+    busy = sum(t for t, _ in kernels.values())
+    by = {"flash_attention": 0.0, "quantize": 0.0, "dequantize": 0.0,
+          "matmul (cuBLAS)": 0.0, "other": 0.0}
+    for name, (us, _) in kernels.items():
+        if "flash_attention_kernel" in name:
+            by["flash_attention"] += us
+        elif "dequantize_kernel" in name:
+            by["dequantize"] += us
+        elif "quantize_kernel" in name:
+            by["quantize"] += us
+        elif any(w in name.lower() for w in ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")):
+            by["matmul (cuBLAS)"] += us
+        else:
+            by["other"] += us
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:6]
+    log(f"profiled train step: wall {1e3 * wall:.3f} ms, device busy {busy / 1e3:.3f} ms "
+        f"({100 * busy / 1e6 / wall:.1f} %), {sum(c for _, c in kernels.values())} device "
+        f"kernels; by kind (ms): " + json.dumps({k: round(v / 1e3, 4) for k, v in by.items()}))
+    log("profiled train step top: " + "; ".join(
+        f"{k[:70]} {t / 1e3:.4f} ms x{c}" for k, (t, c) in top))
+    del params, opt_state, errors, model
+    torch.cuda.empty_cache()
+
+    # Card against host: a reduced gemma3 in f32 (TF32 off), 3 steps of
+    # the trainer's compressed step from the same weights and batches, with
+    # the same noise drawn on the host from (7, step).  Step 0's gradients
+    # come from identical weights: 1e-4 of each leaf's largest host value
+    # (the CPU tests' bound against the reference).  Later steps start from
+    # weights that differ by the f32 roundings of the earlier updates: 1e-3
+    # of the leaf's largest value (PERF.md, section 6, holds the readings).
+    # Losses within 1e-4.
+    small = dataclasses.replace(T.config_for("gemma3-1b"), compute_dtype="float32")
+    p_cpu = build_model(small, "cpu").init(torch.Generator().manual_seed(0), masters=True)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = build_model(small, dev)
+        p = m.cast(p_cpu, masters=True) if dev == "cuda" else p_cpu
+        opt = AdamW(schedule=cosine_schedule(3e-3, 1, 3))
+        step_fn, opt_state, errors = make_compressed_step(m, opt), opt.init(p), None
+        data = make_batch_iterator(SyntheticTokens(small.vocab_size, 40, 2))
+        run = runs[dev] = {"loss": [], "grads": []}
+        try:
+            for step in range(3):
+                gen = torch.Generator().manual_seed(T.noise_seed(step))
+                p, opt_state, errors, stats = step_fn(
+                    p, opt_state, errors, next(data), gen,
+                    lambda g, e, e_new, run=run: run["grads"].append(
+                        [t.cpu() for t in tree.leaves(g)]))
+                run["loss"].append(float(stats["loss"]))
+        finally:
+            data.close()
+    for step, (gc, gh) in enumerate(zip(runs["cuda"]["grads"], runs["cpu"]["grads"])):
+        rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(gc, gh))
+        bound = 1e-4 if step == 0 else 1e-3
+        check(rel <= bound, f"card vs host step {step}: gradients differ by {rel} of a leaf's "
+              f"largest value > {bound}")
+        log(f"card vs host (reduced gemma3, f32) step {step}: gradients within {rel:.3g} of "
+            f"each leaf's largest value (bound {bound}); losses {runs['cuda']['loss'][step]:.7f} "
+            f"and {runs['cpu']['loss'][step]:.7f}")
+    dl = max(abs(a - b) for a, b in zip(runs["cuda"]["loss"], runs["cpu"]["loss"]))
+    check(dl <= 1e-4, f"card vs host losses differ by {dl} > 1e-4")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1536,6 +1785,7 @@ def main() -> int:
     )
     rows.append(phase_flash_kernel(torch))
     rows.append(phase_mlstm_kernel(torch))
+    rows.extend(phase_quant_kernel(torch))
 
     # Phases 3 and 4: the main path, then GPU/CPU parity, on both ensembles;
     # each time under the pair engine, then the flow engine counted apart.
@@ -1582,12 +1832,17 @@ def main() -> int:
     # Phase 7: serving xlstm-1.3b at full width.
     xlstm_counts = phase_serving_xlstm(torch)
 
-    # Phase 8: the kernels line (each kernel's launches on its main path),
+    # Phase 8: training gemma3-1b at full width with compressed gradients.
+    train_counts = phase_training(torch)
+
+    # Phase 9: the kernels line (each kernel's launches on its main path),
     # then the result.
     counts["lp_terms"] = single_counts["lp_terms"]
     counts["event_resolve"] = flow_counts["event_resolve"]
     counts["flash_attention"] = serve_counts["flash_attention"]
     counts["mlstm_chunk"] = xlstm_counts["mlstm_chunk"]
+    counts["quantize"] = train_counts["quantize"]
+    counts["dequantize"] = train_counts["dequantize"]
     for r in rows:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

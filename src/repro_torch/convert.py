@@ -67,7 +67,9 @@ def from_reference(obj: Any, device: str | torch.device) -> Any:
     raise TypeError(f"from_reference: no counterpart for {kind}")
 
 
-def params_from_reference(params: dict, cfg: ModelConfig, device: str | torch.device) -> dict:
+def params_from_reference(
+    params: dict, cfg: ModelConfig, device: str | torch.device, masters: bool = False
+) -> dict:
     """The port's per-layer parameters from the reference's parameter tree.
 
     ``params`` is ``repro.models.model.build_model(cfg).init(key)``'s nested
@@ -97,4 +99,4 @@ def params_from_reference(params: dict, cfg: ModelConfig, device: str | torch.de
         "layers": [layer(i) for i in range(cfg.num_layers)],
         "final_norm": torch.from_numpy(np.array(params["final_norm"])),
         "embed": torch.from_numpy(np.array(params["embed"])),
-    })
+    }, masters)

@@ -24,14 +24,16 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["launch", "library", "library_path", "stream_of", "BUILD_DIR"]
+__all__ = [
+    "launch", "library", "library_path", "refuse_grad", "stream_of", "BUILD_DIR",
+]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 _SOURCES = (
     "pair_resolve.cu", "event_resolve.cu", "port_stats.cu", "lp_terms.cu",
-    "flash_attention.cu", "mlstm_chunk.cu",
+    "flash_attention.cu", "mlstm_chunk.cu", "quant.cu",
 )
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,6 +54,8 @@ _SIGNATURES = {
     "flash_attention": (_P,) * 4 + (_I,) * 7 + (_L,) * 12 + (_I, _I, _I, _F, _P),
     "mlstm_chunk": (_P,) * 10 + (_I,) * 5 + (_P,),
     "mlstm_chunk_smem": (_I, _I, _P, _P),
+    "quantize": (_P, _P, _P, _P, _I, _I, _P),
+    "dequantize": (_P, _P, _P, _I, _I, _P),
 }
 
 _LIB: ctypes.CDLL | None = None
@@ -129,6 +133,22 @@ def library() -> ctypes.CDLL:
 def stream_of(t: torch.Tensor) -> int:
     """Raw handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:
+    """Raise where autograd would record an operand of kernel ``name``.
+
+    A kernel writes its result through raw pointers, so that result has no
+    autograd graph: a wrapper with no backward calls this before its launch
+    rather than hand back a result detached from operands that require
+    grad.  (`flash_attention` has a backward and routes such calls through
+    it.)
+    """
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an operand requires "
+            f"grad; call it under torch.no_grad() or on detached tensors"
+        )
 
 
 def launch(name: str, *args) -> None:

@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import launch, stream_of
+from repro_torch.kernels.common import launch, refuse_grad, stream_of
 
 __all__ = ["event_resolve", "event_resolve_plain", "LAUNCHES"]
 
@@ -148,6 +148,7 @@ def event_resolve(
     if src.device.type != "cuda":
         raise ValueError(f"event_resolve: unsupported device {src.device}")
     ops = (src, dst, rel, free_in, free_out, pending, t)
+    refuse_grad("event_resolve", *ops)
     if not all(x.is_contiguous() for x in ops):
         raise ValueError("event_resolve: every operand must be contiguous")
     shared = (2 * N + -(-F // 32)) * 4

@@ -16,6 +16,11 @@ copy, and the output takes q's layout.  CPU tensors take
 (``kernels/flash_attention/ref.py``).  The two differ only on a row that no
 key is visible to: the kernel writes zeros there (as the Pallas kernel
 does), the oracle the mean of v.  `LAUNCHES` counts kernel launches.
+
+Where autograd records (training), the call goes through a
+`torch.autograd.Function` whose backward recomputes through the twin, as
+the reference's custom VJP does; the kernel never returns a result
+detached from operands that require grad.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.common import launch, stream_of
+from repro_torch.kernels.common import launch, refuse_grad, stream_of
 
 __all__ = ["flash_attention", "flash_attention_plain", "LAUNCHES"]
 
@@ -98,6 +103,28 @@ def _strides(t: torch.Tensor, name: str) -> tuple[int, int, int]:
     return t.stride(0), t.stride(1), t.stride(2)
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Forward through `_forward` (the kernel on the card, the twin on the
+    host); backward by recomputing through `flash_attention_plain` under
+    autograd, as the reference's ``_bwd`` recomputes through
+    ``attention_ref`` (``kernels/flash_attention/ops.py``).  No backward
+    kernel: the reference has none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, q_offset)
+        return _forward(q, k, v, causal, window, q_offset)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+            out = flash_attention_plain(q, k, v, *ctx.mask)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad)
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -106,13 +133,23 @@ def flash_attention(
     window: int | None = None,
     q_offset: int = 0,
 ) -> torch.Tensor:
-    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's dtype."""
-    global LAUNCHES
+    """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's
+    dtype.  Differentiable where autograd records: the forward as below,
+    the backward through the plain twin (`_FlashAttention`)."""
     _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, q_offset)
+    return _forward(q, k, v, causal, window, q_offset)
+
+
+def _forward(q, k, v, causal, window, q_offset) -> torch.Tensor:
+    """The twin for CPU tensors, the kernel for CUDA tensors (no graph)."""
+    global LAUNCHES
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
+    refuse_grad("flash_attention", q, k, v)
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention: float32 or bfloat16, got {q.dtype}")
     B, Hq, Sq, D = q.shape

@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import launch, stream_of
+from repro_torch.kernels.common import launch, refuse_grad, stream_of
 
 __all__ = [
     "lp_terms_batch", "lp_terms_batch_plain", "lp_terms", "lp_terms_plain",
@@ -59,6 +59,7 @@ def _on_cuda(name: str, operands: tuple[torch.Tensor, ...], P: int) -> bool:
         raise ValueError(f"{name}: unsupported device {x.device}")
     if not all(t.is_contiguous() for t in operands):
         raise ValueError(f"{name}: operands must be contiguous")
+    refuse_grad(name, *operands)
     return True
 
 

@@ -38,7 +38,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import launch, stream_of
+from repro_torch.kernels.common import launch, refuse_grad, stream_of
 
 __all__ = ["mlstm_chunk", "mlstm_chunk_plain", "block_smem", "LAUNCHES"]
 
@@ -144,6 +144,7 @@ def mlstm_chunk(q, k, v, log_f, log_i, state=None, chunk: int = 256):
         return mlstm_chunk_plain(q, k, v, log_f, log_i, state, C)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunk: unsupported device {q.device}")
+    refuse_grad("mlstm_chunk", q, k, v, log_f, log_i, *(state or ()))
     BH, S, Dh = q.shape
     need, limit = block_smem(q.device.index, Dh, C)
     if need > limit:

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import launch, stream_of
+from repro_torch.kernels.common import launch, refuse_grad, stream_of
 
 __all__ = ["pair_resolve", "pair_resolve_plain", "LAUNCHES"]
 
@@ -53,6 +53,7 @@ def pair_resolve(claim: torch.Tensor, idle: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"pair_resolve: unsupported device {claim.device}")
     if not (claim.is_contiguous() and idle.is_contiguous()):
         raise ValueError("pair_resolve: claim and idle must be contiguous")
+    refuse_grad("pair_resolve", claim, idle)
     G, N, _ = claim.shape
     if N > _MAX_PORTS:
         raise ValueError(f"pair_resolve: at most {_MAX_PORTS} ports, got {N}")

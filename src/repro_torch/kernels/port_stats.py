@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import launch, stream_of
+from repro_torch.kernels.common import launch, refuse_grad, stream_of
 
 __all__ = ["port_stats", "port_stats_plain", "LAUNCHES"]
 
@@ -88,6 +88,7 @@ def port_stats(demands: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         raise ValueError(f"port_stats: unsupported device {demands.device}")
     if not demands.is_contiguous():
         raise ValueError("port_stats: demands must be contiguous")
+    refuse_grad("port_stats", demands)
     rho = torch.empty((M, 2 * N), dtype=torch.float64, device=demands.device)
     tau = torch.empty((M, 2 * N), dtype=torch.int32, device=demands.device)
     if M and N:

@@ -3,16 +3,19 @@
 Conventions, as in the reference:
   * activations are (batch, seq, ...); the residual stream is in
     ``cfg.compute_dtype``;
-  * params are plain dicts of tensors.  The port holds each matrix (and the
-    embedding) once in the compute dtype, cast at load, where the reference
-    keeps f32 masters and casts at every use: the values that reach each
-    product are the same, and a decode step does not reread f32 weights.
-    Norm weights stay f32, as the reference reads them;
+  * params are plain dicts of tensors.  Each matrix is cast to the compute
+    dtype where it is used, as the reference casts its f32 masters: a
+    trainer holds f32 parameters and its gradients flow through the casts;
+    a server holds the matrices once in the compute dtype
+    (`repro_torch.models.model.Model.cast`), where the cast is a no-op and
+    a decode step does not reread f32 weights.  Norm weights are read in
+    f32;
   * attention runs through the ported flash kernel
     (`repro_torch.kernels.flash_attention`) on the card and its plain twin
-    on the host.  The reference's second jnp formulation
-    (``chunked_attention``, with its custom VJP for training) is not ported:
-    it comes with the training path (ROADMAP.md, Queue 1).
+    on the host, in training too: its backward recomputes through the twin,
+    as the reference's flash route does.  The reference's second jnp
+    formulation (``chunked_attention``, with its own custom VJP) is not
+    ported; both of its routes compute the same function.
 
 The reference's sharding hints (``launch.sharding.constrain``) have no
 counterpart: the port runs on one card.
@@ -74,8 +77,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> to
 
 
 def attn_init(gen: torch.Generator, cfg) -> dict[str, torch.Tensor]:
-    """f32 values; `repro_torch.models.model.Model.init` casts the matrices
-    to the compute dtype."""
+    """f32 values; `repro_torch.models.model.Model.init` holds them as
+    `Model.cast` says."""
     D, H, Hkv, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
         "norm": torch.zeros(D, device=gen.device),
@@ -98,9 +101,10 @@ def attn_apply(p, x, cfg, *, positions, cache=None, pos=0, window=None):
     B, S, _ = x.shape
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     h = rms_norm(x, p["norm"])
-    q = rope((h @ p["wq"]).view(B, S, H, Dh), positions, cfg.rope_theta)
-    k = rope((h @ p["wk"]).view(B, S, Hkv, Dh), positions, cfg.rope_theta)
-    v = (h @ p["wv"]).view(B, S, Hkv, Dh)
+    cdt = h.dtype
+    q = rope((h @ p["wq"].to(cdt)).view(B, S, H, Dh), positions, cfg.rope_theta)
+    k = rope((h @ p["wk"].to(cdt)).view(B, S, Hkv, Dh), positions, cfg.rope_theta)
+    v = (h @ p["wv"].to(cdt)).view(B, S, Hkv, Dh)
     if cache is not None:
         cache["k"][:, pos : pos + S] = k
         cache["v"][:, pos : pos + S] = v
@@ -110,7 +114,7 @@ def attn_apply(p, x, cfg, *, positions, cache=None, pos=0, window=None):
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=True, window=window, q_offset=pos,
     ).transpose(1, 2)
-    out = out.reshape(B, S, H * Dh) @ p["wo"]
+    out = out.reshape(B, S, H * Dh) @ p["wo"].to(cdt)
     return out.to(x.dtype), cache
 
 
@@ -139,6 +143,7 @@ def ffn_init(gen: torch.Generator, cfg) -> dict[str, torch.Tensor]:
 
 def ffn_apply(p, x, cfg):
     h = rms_norm(x, p["norm"])
-    g = F.silu(h @ p["w_gate"])
-    u = h @ p["w_up"]
-    return ((g * u) @ p["w_down"]).to(x.dtype)
+    cdt = h.dtype
+    g = F.silu(h @ p["w_gate"].to(cdt))
+    u = h @ p["w_up"].to(cdt)
+    return ((g * u) @ p["w_down"].to(cdt)).to(x.dtype)

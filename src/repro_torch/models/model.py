@@ -14,9 +14,15 @@ at every call).
 The port runs the kinds "attn" (global) and "local" (sliding window), each
 followed by the dense gated FFN, and "mlstm" and "slstm", which carry their
 own projections and have no FFN (``d_ff = 0`` is accepted for them only).
-Other kinds (MLA, RG-LRU, cross attention), mixtures of experts and the
-train path (``loss``) are not ported yet (ROADMAP.md, Queue 1):
-`build_model` raises for them.
+Other kinds (MLA, RG-LRU, cross attention) and mixtures of experts are not
+ported yet (ROADMAP.md, Queue 1): `build_model` raises for them.
+
+Training (`Model.loss`) runs the dense kinds: a trainer holds f32 masters
+(``init(..., masters=True)``), cast to the compute dtype at every use as
+the reference casts them, and autograd differentiates through the casts
+and through the flash kernel's backward.  xLSTM is served, not trained:
+`mlstm_chunk` has no backward (the reference trains xLSTM through its jnp
+scan), so `loss` and f32 masters raise for "mlstm" and "slstm".
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
@@ -49,7 +57,7 @@ class Model:
         self._embed_scale = float(torch.tensor(cfg.d_model**0.5, dtype=self.dtype))
 
     # ---------------------------------------------------------------- init
-    def init(self, generator: torch.Generator) -> dict[str, Any]:
+    def init(self, generator: torch.Generator, masters: bool = False) -> dict[str, Any]:
         """Random parameters from ``generator``, which must be on the
         model's device: the reference's distributions (matrices N(0,
         1/fan_in), sLSTM's ``r`` N(0, 1/head_dim), embedding N(0, 0.02^2),
@@ -72,15 +80,20 @@ class Model:
             "final_norm": torch.zeros(cfg.d_model, device=self.device),
             "embed": L.embed_init(generator, cfg.vocab_size, cfg.d_model) * 0.02,
         }
-        return self.cast(params)
+        return self.cast(params, masters)
 
-    def cast(self, params: dict[str, Any]) -> dict[str, Any]:
-        """Matrices and the embedding in the compute dtype; norm weights
-        and sLSTM's recurrent kernel ``r`` in f32, as the reference reads
-        them; all on the model's device."""
+    def cast(self, params: dict[str, Any], masters: bool = False) -> dict[str, Any]:
+        """All on the model's device.  For serving (``masters=False``):
+        matrices and the embedding in the compute dtype, norm weights and
+        sLSTM's recurrent kernel ``r`` in f32, as the reference reads them.
+        For training (``masters=True``): every leaf in f32, the reference's
+        ``param_dtype``, cast at each use."""
+        if masters:
+            self._check_trainable()
+
         def one(t: torch.Tensor, name: str = "") -> torch.Tensor:
-            dtype = torch.float32 if t.dim() == 1 or name == "r" else self.dtype
-            return t.to(device=self.device, dtype=dtype)
+            keep = masters or t.dim() == 1 or name == "r"
+            return t.to(device=self.device, dtype=torch.float32 if keep else self.dtype)
 
         return {
             "layers": [
@@ -93,18 +106,23 @@ class Model:
 
     # ------------------------------------------------------------ backbone
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens] * self._embed_scale
+        return params["embed"].to(self.dtype)[tokens] * self._embed_scale
 
-    def _head(self, params, x: torch.Tensor) -> torch.Tensor:
+    def _head(self, final_norm, embed, x: torch.Tensor) -> torch.Tensor:
         """Logits in the compute dtype, against the tied embedding."""
-        x = L.rms_norm(x, params["final_norm"])
-        return x @ params["embed"].T
+        x = L.rms_norm(x, final_norm)
+        return x @ embed.to(self.dtype).T
 
     def forward(self, params, batch, cache=None, pos: int = 0):
         """batch['tokens']: (B, S) int.  Returns (logits (B, S, V), cache);
         with a cache, K/V of positions pos .. pos + S - 1 are written into
         it in place, and each recurrent layer's entry is replaced by its
         state after position pos + S - 1."""
+        x = self._hidden(params, batch, cache, pos)
+        return self._head(params["final_norm"], params["embed"], x), cache
+
+    def _hidden(self, params, batch, cache=None, pos: int = 0) -> torch.Tensor:
+        """The residual stream after the last layer, (B, S, D)."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         B, S = tokens.shape
@@ -126,7 +144,51 @@ class Model:
             x = x + delta
             if "ffn" in p:
                 x = x + L.ffn_apply(p["ffn"], x, cfg)
-        return self._head(params, x), cache
+        return x
+
+    # ---------------------------------------------------------------- loss
+    def _check_trainable(self) -> None:
+        recurrent = sorted(set(self.cfg.layer_kinds) & set(_RECURRENT_KINDS))
+        if recurrent:
+            raise NotImplementedError(
+                f"{self.cfg.name}: training {', '.join(recurrent)} layers is not "
+                f"ported (mlstm_chunk has no backward; ROADMAP.md, Queue 1)"
+            )
+
+    def _xent(self, final_norm, embed, x_c, y_c) -> torch.Tensor:
+        """Summed token cross entropy of one chunk: logits in the compute
+        dtype, their logsumexp in f32, the label's logit read in the
+        compute dtype and then widened (the reference's one-hot sum)."""
+        logits = self._head(final_norm, embed, x_c)
+        lse = torch.logsumexp(logits.to(torch.float32), dim=-1)
+        ll = logits.gather(-1, y_c[..., None])[..., 0].to(torch.float32)
+        return (lse - ll).sum()
+
+    def loss(self, params, batch, seq_chunk: int = 512) -> torch.Tensor:
+        """Mean token cross entropy (f32 scalar) of batch['tokens'] against
+        batch['labels'], both (B, S).
+
+        As the reference: chunks of ``seq_chunk`` positions, each
+        recomputed in the backward (`torch.utils.checkpoint`, the
+        reference's ``jax.checkpoint``), so the (B, S, vocab) logits are
+        never held whole; the whole sequence in one chunk when ``S`` is not
+        a multiple of the chunk; the sum divided by the label count.
+        """
+        self._check_trainable()
+        x = self._hidden(params, batch)
+        labels = torch.as_tensor(batch["labels"], device=self.device).long()
+        B, S = labels.shape
+        c = min(S, seq_chunk)
+        norm, embed = params["final_norm"], params["embed"]
+        if S % c:
+            return self._xent(norm, embed, x, labels) / labels.numel()
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i in range(0, S, c):
+            total = total + checkpoint(
+                self._xent, norm, embed, x[:, i : i + c], labels[:, i : i + c],
+                use_reentrant=False,
+            )
+        return total / labels.numel()
 
     def init_cache(self, batch: int, max_len: int) -> list:
         """Per layer: zero K/V of ``max_len`` positions for attention, the
@@ -174,22 +236,11 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
     return Model(cfg, device)
 
 
-def _leaves(params):
-    if isinstance(params, dict):
-        for v in params.values():
-            yield from _leaves(v)
-    elif isinstance(params, (list, tuple)):
-        for v in params:
-            yield from _leaves(v)
-    else:
-        yield params
-
-
 def param_count(params) -> int:
-    return sum(t.numel() for t in _leaves(params))
+    return sum(t.numel() for t in tree.leaves(params))
 
 
 def param_bytes(params) -> int:
-    """Bytes as held: the port keeps matrices in the compute dtype, so this
-    is about half the reference's f32 figure under bf16."""
-    return sum(t.numel() * t.element_size() for t in _leaves(params))
+    """Bytes as held: a server keeps matrices in the compute dtype (about
+    half the f32 figure under bf16), a trainer f32 masters."""
+    return sum(t.numel() * t.element_size() for t in tree.leaves(params))

@@ -48,8 +48,9 @@ def test_no_jax_or_reference_imports(path):
 def test_new_modules_are_checked():
     """The per-instance LP, the LP-guided order, the certificate, the
     serving path (configs, models, flash kernel, serve), the flow-space
-    calendar's kernel and xLSTM (config, blocks, mLSTM kernel) are among the
-    files the syntax check reads."""
+    calendar's kernel, xLSTM (config, blocks, mLSTM kernel) and the
+    training path (quant kernels, compression, AdamW, data, steps, train)
+    are among the files the syntax check reads."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in (
         "core/lp.py", "core/ordering.py", "core/lower_bounds.py", "core/theory.py",
@@ -57,6 +58,8 @@ def test_new_modules_are_checked():
         "kernels/flash_attention.py", "models/layers.py", "models/model.py",
         "launch/serve.py", "kernels/event_resolve.py",
         "configs/xlstm_1_3b.py", "models/xlstm.py", "kernels/mlstm_chunk.py",
+        "kernels/quant.py", "runtime/compression.py", "optim/adamw.py",
+        "data/pipeline.py", "launch/steps.py", "launch/train.py", "tree.py",
     ):
         assert f"src/repro_torch/{mod}" in names
 
@@ -67,7 +70,9 @@ def test_import_loads_no_jax():
         "repro_torch.convert, repro_torch.traffic, repro_torch.core.ordering, "
         "repro_torch.core.lower_bounds, repro_torch.core.theory, "
         "repro_torch.configs, repro_torch.models, repro_torch.models.xlstm, "
-        "repro_torch.kernels.mlstm_chunk, repro_torch.launch.serve; "
+        "repro_torch.kernels.mlstm_chunk, repro_torch.launch.serve, "
+        "repro_torch.kernels.quant, repro_torch.runtime.compression, "
+        "repro_torch.optim, repro_torch.data.pipeline, repro_torch.launch.train; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -86,6 +91,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.core import lp
     from repro_torch.core.ordering import lp_guided_order
     from repro_torch.experiments import solve_ensemble_lp
+    from repro_torch.launch import train
     from repro_torch.launch.serve import main, serve
     from repro_torch.models import build_model
     from repro_torch.pipeline import build_ensemble_batch, get_pipeline
@@ -119,6 +125,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: serve(xlstm, None, slots=1, requests=1, prompt_len=2, max_new=1, seed=0),
         lambda: main(["--arch", "xlstm-1.3b", "--requests", "1", "--prompt-len", "2",
                       "--max-new", "1"]),
+        lambda: train.main(["--arch", "gemma3-1b", "--steps", "1", "--compress-grads"]),
+        lambda: train.train(cfg, steps=1, batch=1, seq=4, compress_grads=True),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
