@@ -53,15 +53,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    262144, head_dim 256, window 512; random weights from a seed) through
    `repro_torch.launch.serve.serve`: 8 requests of 600 prompt tokens, 4
    slots (2 waves), 16 new tokens each; every request gets its tokens,
-   every logit is finite, the `flash_attention` kernel launched exactly
-   waves x (1 + max_new) x layers = 884 times; one decode step after a
+   every logit is finite, the `flash_attention` kernels called exactly
+   waves x (1 + max_new) x layers = 884 times (`LAUNCHES` counts one per
+   call: a split-route call launches two CUDA kernels, the runs and their
+   merge); one decode step after a
    prefill of P - 1 tokens matches the teacher-forced forward over P
    within 4 bf16 units of the largest logit; a reduced gemma3 in f32
    serves identical tokens on the card and on the host, logits within
    2e-4; one decode tick profiled.  The kernel phase (2) holds
    `flash_attention` against its twin at the serving shapes (prefill
    (4, 4, 600, 617, 256) and decode (4, 4, 1, 617, 256) at offset 600,
-   with and without the window) and at cases of the reference's sweep;
+   with and without the window), at the training shape (4, 4, 1, 1024,
+   1024, 256) and at cases of the reference's sweep, logging the route
+   (``mma``, ``split`` or ``simt``) each took;
 7. serving ``xlstm-1.3b`` at full width (48 layers: 42 mLSTM and 6 sLSTM,
    d_model 2048, 4 heads of 512, vocab 50304; random weights from a seed)
    through the same `serve`, 8 requests of 600 prompt tokens (two full
@@ -202,18 +206,21 @@ PROFILED_LAUNCHES = 30
 
 
 def profiled_launches(torch, kernel, fn, n):
-    """Profile ``n`` calls of ``fn``; return the device microseconds and the
-    count of the launches of ``kernel`` that the profiler recorded.  It
+    """Profile ``n`` calls of ``fn``; return the device microseconds of
+    every CUDA kernel named ``<kernel>_kernel...`` (a call may launch more
+    than one: `flash_attention`'s split route merges its runs in
+    ``flash_attention_kernel_combine``) and the number of calls the
+    profiler recorded (launches of the kernels not named ``_combine``).  It
     now and then reports no device activity for a window this short: up
     to three windows are tried.  After a traced session of tens of
     thousands of kernels it may also record only part of a window's
     launches, so the count is returned, not assumed."""
     for _ in range(3):
         _, kernels = profile_device(torch, lambda: [fn() for _ in range(n)])
-        mine = [v for k, v in kernels.items()
-                if f"{kernel}_kernel(" in k or f"{kernel}_kernel<" in k]
-        if mine:
-            return sum(t for t, _ in mine), sum(c for _, c in mine)
+        mine = {k: v for k, v in kernels.items() if f"{kernel}_kernel" in k}
+        calls = sum(c for k, (_, c) in mine.items() if "_combine" not in k)
+        if calls:
+            return sum(t for t, _ in mine.values()), calls
     return 0.0, 0
 
 
@@ -461,23 +468,26 @@ def attention_mask(torch, Sq, Skv, causal, window, q_offset, dev):
 def phase_flash_kernel(torch):
     """`flash_attention` against its twin: f32 within 2e-5 (the reference
     sweep's tolerance); bf16 within one bf16 rounding (2**-7 of the value
-    plus 1e-5), since both compute in f32 and round once.  Then the
-    serving shapes timed."""
+    plus 1e-5), since both compute in f32 and round once.  Each case logs
+    the route `flash_attention.plan` gave it.  Then the serving shapes and
+    the training shape timed."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator().manual_seed(15)
-    serving = {
+    timed = {
         "prefill local": (4, 4, 1, 600, 617, 256, True, 512, 0),
         "prefill global": (4, 4, 1, 600, 617, 256, True, None, 0),
         "decode global": (4, 4, 1, 1, 617, 256, True, None, 600),
         "decode local": (4, 4, 1, 1, 617, 256, True, 512, 600),
+        "training": (4, 4, 1, 1024, 1024, 256, True, None, 0),
     }
     err = 0.0
     inputs = {}
-    for label, case in [*serving.items(), *(("sweep", c) for c in ATTN_SWEEP)]:
+    for label, case in [*timed.items(), *(("sweep", c) for c in ATTN_SWEEP)]:
         B, Hq, Hkv, Sq, Skv, D, causal, window, off = case
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = (
@@ -495,20 +505,25 @@ def phase_flash_kernel(torch):
                 check(bool((e <= 2**-7 * want.abs() + 1e-5).all()),
                       f"flash_attention {label} {case} bf16 beyond one rounding")
                 err = max(err, float(e.max()))
-            log(f"flash_attention {label} {case} {str(dtype)[6:]}: max abs err "
-                f"{float(e.max()):.3g}")
-            if label in serving and dtype == torch.bfloat16:
+            plan = fa.plan(dtype, B, Hq, Hkv, Sq, Skv, causal, window, off, sms)
+            log(f"flash_attention {label} {case} {str(dtype)[6:]}: route {plan.route}"
+                + (f" ({plan.n_split} runs of {plan.length} keys from {plan.begin})"
+                   if plan.route == "split" else "")
+                + f", max abs err {float(e.max()):.3g}")
+            if label in timed and dtype == torch.bfloat16:
                 inputs[label] = (q, k, v, case)
+            del q, k, v, got, want, e
     # The model hands the kernel (B, S, H, D) tensors viewed as (B, H, S, D).
-    q, k, v, case = inputs["prefill local"]
-    views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
-    check(torch.equal(fa.flash_attention(*views, *case[6:]),
-                      fa.flash_attention(q, k, v, *case[6:])),
-          "flash_attention on strided views differs from contiguous inputs")
+    for label in ("prefill local", "decode local"):
+        q, k, v, case = inputs[label]
+        views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
+        check(torch.equal(fa.flash_attention(*views, *case[6:]),
+                          fa.flash_attention(q, k, v, *case[6:])),
+              f"flash_attention {label} on strided views differs from contiguous inputs")
     log("flash_attention: strided (B, S, H, D) views give the same bits")
 
-    t = None
-    for label in ("prefill global", "prefill local", "decode global", "decode local"):
+    times = {}
+    for label in timed:
         q, k, v, case = inputs[label]
         B, Hq, Hkv, Sq, Skv, D, causal, window, off = case
         mask = attention_mask(torch, Sq, Skv, causal, window, off, dev)
@@ -519,7 +534,7 @@ def phase_flash_kernel(torch):
         live_rows = int(mask.any(dim=0).sum())
         nbytes = 2 * (2 * B * Hq * Sq * D + 2 * B * Hkv * live_rows * D)
         ops = 4 * D * pairs * B * Hq
-        t = timed_call(
+        times[label] = timed_call(
             torch, f"flash_attention {label} (B={B}, Hq={Hq}, Hkv={Hkv}, Sq={Sq}, "
             f"Skv={Skv}, D={D}, window={window}, q_offset={off}, bf16)",
             "flash_attention",
@@ -533,7 +548,7 @@ def phase_flash_kernel(torch):
         name="flash_attention", route="cuda",
         source="src/repro_torch/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention/kernel.py:99",
-        max_abs_err=err, **t,
+        max_abs_err=err, **times["decode local"],
     )
 
 
@@ -1334,7 +1349,7 @@ def phase_serving(torch):
     busy = sum(t for t, _ in kernels.values())
     by = {"flash_attention": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
     for name, (us, _) in kernels.items():
-        if "flash_attention_kernel" in name:
+        if "flash_attention_kernel" in name:  # _mma, the runs and _combine
             by["flash_attention"] += us
         elif any(w in name.lower() for w in ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")):
             by["matmul (cuBLAS)"] += us
@@ -1673,7 +1688,7 @@ def phase_training(torch):
     by = {"flash_attention": 0.0, "quantize": 0.0, "dequantize": 0.0,
           "matmul (cuBLAS)": 0.0, "other": 0.0}
     for name, (us, _) in kernels.items():
-        if "flash_attention_kernel" in name:
+        if "flash_attention_kernel" in name:  # _mma, the runs and _combine
             by["flash_attention"] += us
         elif "dequantize_kernel" in name:
             by["dequantize"] += us

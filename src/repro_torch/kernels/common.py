@@ -51,7 +51,7 @@ _SIGNATURES = {
     "port_stats": (_P, _P, _P, _I, _I, _P),
     "lp_terms_batch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "lp_terms": (_P, _P, _P, _F, _F, _P, _P, _I, _I, _P),
-    "flash_attention": (_P,) * 4 + (_I,) * 7 + (_L,) * 12 + (_I, _I, _I, _F, _P),
+    "flash_attention": (_P,) * 5 + (_I,) * 7 + (_L,) * 12 + (_I, _I, _I, _F) + (_I,) * 4 + (_P,),
     "mlstm_chunk": (_P,) * 10 + (_I,) * 5 + (_P,),
     "mlstm_chunk_smem": (_I, _I, _P, _P),
     "quantize": (_P, _P, _P, _P, _I, _I, _P),

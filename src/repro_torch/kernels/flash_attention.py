@@ -8,14 +8,32 @@ absolute position ``q_offset + i``; key j is visible when ``j <= q_offset +
 i`` (causal) and ``q_offset + i - j < window`` (window given).  Softmax
 runs in f32 with scale 1/sqrt(D); the output has q's dtype.
 
-CUDA tensors launch the hand-written kernel (``csrc/flash_attention.cu``),
-in f32 or bf16 with D in {16, 32, 64, 128, 256}; the kernel takes strides,
+CUDA tensors launch the hand-written kernels (``csrc/flash_attention.cu``),
+in f32 or bf16 with D in {16, 32, 64, 128, 256}; the kernels take strides,
 so views such as ``x.transpose(1, 2)`` of a (B, S, H, D) tensor need no
 copy, and the output takes q's layout.  CPU tensors take
 `flash_attention_plain`, a copy of the reference's oracle
 (``kernels/flash_attention/ref.py``).  The two differ only on a row that no
-key is visible to: the kernel writes zeros there (as the Pallas kernel
-does), the oracle the mean of v.  `LAUNCHES` counts kernel launches.
+key is visible to: the kernels write zeros there (as the Pallas kernel
+does), the oracle the mean of v.
+
+`plan` picks the route of a call from its shape and dtype alone, over the
+R = (Hq // Hkv) * Sq rows of one (batch, kv head):
+
+* ``"split"`` when R <= `SPLIT_ROWS` (decode, either dtype): the tiled
+  kernels would run one block per (batch, kv head), B * Hkv blocks (4 of
+  132 SMs for gemma3-1b's decode), so the live key band is cut into runs
+  of whole `SPLIT_KEYS`-key tiles, enough that B * Hkv * n_split blocks
+  fill the SMs; one block per run writes partials to f32 scratch, and a
+  second kernel merges them in run order (same inputs, same bits);
+* ``"mma"`` for bf16 with R > SPLIT_ROWS (prefill, training): bf16
+  tensor-core products, 64 rows a block (the last block of a (batch, kv
+  head) may hold fewer);
+* ``"simt"`` for f32 with R > SPLIT_ROWS (f32 prefill): f32 products on
+  CUDA cores.
+
+`LAUNCHES` counts one per call that reaches a kernel, whatever number of
+CUDA kernels the route launches (the split route launches two).
 
 Where autograd records (training), the call goes through a
 `torch.autograd.Function` whose backward recomputes through the twin, as
@@ -26,21 +44,74 @@ detached from operands that require grad.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.kernels.common import launch, refuse_grad, stream_of
 
-__all__ = ["flash_attention", "flash_attention_plain", "LAUNCHES"]
+__all__ = [
+    "flash_attention", "flash_attention_plain", "live_band", "plan", "Plan",
+    "LAUNCHES", "SPLIT_KEYS", "SPLIT_ROWS",
+]
 
-#: Kernel launches in this process (CPU calls are not counted).
+#: Calls that reached a kernel in this process (CPU calls are not counted).
 LAUNCHES = 0
 
-# Head dimensions the kernel is built for.
+#: Rows per (batch, kv head) that one split-route block holds.
+SPLIT_ROWS = 16
+#: Keys of the split route's tile; every run is a whole number of tiles.
+SPLIT_KEYS = 32
+
+# Head dimensions the kernels are built for.
 _HEAD_DIMS = (16, 32, 64, 128, 256)
 
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_CODES = {"simt": 0, "mma": 1, "split": 2}
+_SM_COUNTS: dict[int, int] = {}
+
+
+@dataclass(frozen=True)
+class Plan:
+    """A call's route; for ``"split"``, run s covers the keys
+    ``[begin + s * length, begin + (s + 1) * length)``, s < n_split."""
+
+    route: str
+    n_split: int = 1
+    begin: int = 0
+    length: int = 0
+
+
+def live_band(Sq: int, Skv: int, causal: bool, window: int | None,
+              q_offset: int) -> tuple[int, int]:
+    """The key positions [lo, hi) visible to some query 0 <= i < Sq
+    (empty as lo == hi)."""
+    lo = 0 if window is None else max(0, q_offset - window + 1)
+    hi = min(Skv, q_offset + Sq) if causal else Skv
+    return (lo, hi) if hi > lo else (0, 0)
+
+
+def plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, Sq: int, Skv: int,
+         causal: bool, window: int | None, q_offset: int, num_sms: int) -> Plan:
+    """The route of a call on a card with ``num_sms`` SMs (module doc)."""
+    rows = Hq // Hkv * Sq
+    if rows <= SPLIT_ROWS:
+        lo, hi = live_band(Sq, Skv, causal, window, q_offset)
+        tiles = -(-(hi - lo) // SPLIT_KEYS)
+        if tiles == 0:
+            return Plan("split")
+        want = -(-num_sms // (B * Hkv))
+        per_run = -(-tiles // min(want, tiles))
+        return Plan("split", -(-tiles // per_run), lo, per_run * SPLIT_KEYS)
+    return Plan("mma" if dtype == torch.bfloat16 else "simt")
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SM_COUNTS:
+        _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNTS[index]
 
 
 def flash_attention_plain(
@@ -92,15 +163,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: q, k and v must share a device")
 
 
-def _strides(t: torch.Tensor, name: str) -> tuple[int, int, int]:
-    """Batch, head and position strides of a kernel operand, which must
-    have a contiguous last axis and 16-byte aligned rows."""
-    size = t.element_size()
-    if t.stride(3) != 1:
+def _operand(t: torch.Tensor, name: str) -> tuple[int, int, int, int]:
+    """Pointer and batch, head and position strides of a kernel operand,
+    which must have a contiguous last axis and 16-byte aligned rows."""
+    ptr, size, (sb, sh, ss, sd) = t.data_ptr(), t.element_size(), t.stride()
+    if sd != 1:
         raise ValueError(f"flash_attention: {name}'s last axis must be contiguous")
-    if t.data_ptr() % 16 or any((t.stride(i) * size) % 16 for i in range(3)):
+    if ptr % 16 or (sb * size) % 16 or (sh * size) % 16 or (ss * size) % 16:
         raise ValueError(f"flash_attention: {name}'s rows must be 16-byte aligned")
-    return t.stride(0), t.stride(1), t.stride(2)
+    return ptr, sb, sh, ss
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -161,15 +232,21 @@ def _forward(q, k, v, causal, window, q_offset) -> torch.Tensor:
     out = torch.empty_like(q)  # q's layout (strides) where q is dense
     if B * Hq * Sq == 0:
         return out
-    strides = [
-        s for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out"))
-        for s in _strides(t, name)
-    ]
+    ops = [_operand(t, name) for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out"))]
+    p = plan(q.dtype, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, _sm_count(q.device))
+    scratch = None  # held until the launch is queued
+    if p.route == "split":  # (m, l, acc[D]) in f32 per run and row
+        scratch = torch.empty(
+            B * Hq * Sq * p.n_split * (D + 2), dtype=torch.float32, device=q.device
+        )
     launch(
-        "flash_attention", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), _DTYPE_CODES[q.dtype], B, Hq, Hkv, Sq, Skv, D,
-        *strides, int(causal), -1 if window is None else int(window),
-        int(q_offset), ctypes.c_float(1.0 / D**0.5), stream_of(q),
+        "flash_attention", ops[0][0], ops[1][0], ops[2][0], ops[3][0],
+        None if scratch is None else scratch.data_ptr(),
+        _DTYPE_CODES[q.dtype], B, Hq, Hkv, Sq, Skv, D,
+        *(s for op in ops for s in op[1:]), int(causal),
+        -1 if window is None else int(window), int(q_offset),
+        ctypes.c_float(1.0 / D**0.5), _ROUTE_CODES[p.route],
+        p.n_split, p.begin, p.length, stream_of(q),
     )
     LAUNCHES += 1
     return out

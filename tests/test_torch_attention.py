@@ -108,3 +108,78 @@ def test_wrapper_validates():
     before = fa.LAUNCHES
     fa.flash_attention(q, k, k)
     assert fa.LAUNCHES == before  # CPU calls take the twin, uncounted
+
+
+# The wrapper's route choice and split plan (pure Python; the kernels they
+# pick are held to the twin on the card in `tests/test_torch_kernels.py`).
+PLAN_CASES = [
+    # B, Hq, Hkv, Sq, Skv, causal, window, q_offset
+    (4, 4, 1, 1, 617, True, None, 600),   # gemma3 decode, global layer
+    (4, 4, 1, 1, 617, True, 512, 600),    # gemma3 decode, local layer
+    (4, 4, 1, 1, 80, True, None, 10),     # decode early in the cache
+    (2, 8, 1, 1, 300, True, None, 299),   # group 8
+    (2, 1, 1, 1, 300, True, 40, 299),     # group 1, window
+    (1, 1, 1, 16, 616, True, 64, 600),    # 16 rows: runs empty for row 0
+    (1, 2, 1, 8, 64, False, 2, 60),       # rows whose keys all lie past Skv
+    (1, 2, 1, 1, 64, True, 0, 10),        # window 0: no key visible
+    (200, 1, 1, 1, 5000, True, None, 4999),  # more (b, kv head) than SMs
+    (1, 1, 1, 1, 200000, True, None, 199999),  # more tiles than SMs
+]
+
+
+def _visible(Sq, Skv, causal, window, off):
+    qi = off + np.arange(Sq)[:, None]
+    kj = np.arange(Skv)[None, :]
+    mask = np.ones((Sq, Skv), bool)
+    if causal:
+        mask &= qi >= kj
+    if window is not None:
+        mask &= qi - kj < window
+    return mask
+
+
+@pytest.mark.parametrize("case", PLAN_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_plan_covers_the_live_band_once(case, dtype):
+    B, Hq, Hkv, Sq, Skv, causal, window, off = case
+    p = fa.plan(dtype, B, Hq, Hkv, Sq, Skv, causal, window, off, num_sms=132)
+    assert p.route == "split"
+    assert 1 <= p.n_split <= 132 and p.length % fa.SPLIT_KEYS == 0
+    lo, hi = fa.live_band(Sq, Skv, causal, window, off)
+    # The kernel clips each run to the band [lo, hi).
+    runs = np.zeros(Skv, int)
+    for s in range(p.n_split):
+        a, b = p.begin + s * p.length, p.begin + (s + 1) * p.length
+        assert a >= lo and (a < hi or hi == lo)  # no run wholly past the band
+        runs[a:min(b, hi)] += 1
+    assert (runs <= 1).all()
+    assert np.flatnonzero(runs).tolist() == list(range(lo, hi))
+    live = _visible(Sq, Skv, causal, window, off).any(axis=0)
+    assert (runs[live] == 1).all()  # every live key in exactly one run
+    if hi > lo:  # runs as short as B * Hkv * n_split <= 132 SMs allows
+        tiles = -(-(hi - lo) // fa.SPLIT_KEYS)
+        most = min(-(-132 // (B * Hkv)), tiles)
+        assert p.n_split <= most
+        assert (p.length // fa.SPLIT_KEYS - 1) * most < tiles
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_route_choice(dtype):
+    def route(B, Hq, Hkv, Sq, Skv, window=None, off=0):
+        return fa.plan(dtype, B, Hq, Hkv, Sq, Skv, True, window, off, 132).route
+
+    bf16 = dtype == torch.bfloat16
+    # The serving shapes: decode splits, prefill takes the tensor cores in
+    # bf16; training's shape too.
+    assert route(4, 4, 1, 1, 617, None, 600) == "split"
+    assert route(4, 4, 1, 1, 617, 512, 600) == "split"
+    assert route(4, 4, 1, 600, 617, None) == ("mma" if bf16 else "simt")
+    assert route(4, 4, 1, 600, 617, 512) == ("mma" if bf16 else "simt")
+    assert route(4, 4, 1, 1024, 1024) == ("mma" if bf16 else "simt")
+    # Route boundaries in rows per (b, kv head), group * Sq.
+    assert route(1, 4, 1, 4, 64) == "split"  # 16 rows
+    assert route(1, 1, 1, 17, 64) == ("mma" if bf16 else "simt")
+    assert route(1, 1, 1, 63, 64) == ("mma" if bf16 else "simt")
+    assert route(1, 1, 1, 64, 64) == ("mma" if bf16 else "simt")
+    assert route(1, 8, 2, 16, 64) == ("mma" if bf16 else "simt")  # 4 x 16 rows
+    assert route(1, 1, 1, 65, 64) == ("mma" if bf16 else "simt")

@@ -12,8 +12,9 @@ Tolerances:
     the exact value;
   * flash_attention (kernel against twin, card only) -- 2e-5 in f32 (the
     reference sweep's tolerance); in bf16 one bf16 rounding, 2**-7 of the
-    value plus 1e-5: both compute in f32 and round once.  The twin against
-    the reference is in `tests/test_torch_attention.py`.
+    value plus 1e-5: both compute in f32 and round once; a row no key is
+    visible to is exactly zero (the twin gives the mean of v there).  The
+    twin against the reference is in `tests/test_torch_attention.py`.
 """
 
 import numpy as np
@@ -246,6 +247,29 @@ def test_lp_terms_kernel_matches_plain_and_batch(cuda, M, P):
         (1, 2, 2, 128, 128, 128, False, None, 0),
         (1, 3, 1, 64, 320, 32, True, None, 256),
         (2, 4, 2, 40, 57, 16, True, 16, 0),
+        # Route boundaries: rows per (b, kv head) below, at and above the
+        # tensor-core tile of 64, and at the split route's 16.
+        (1, 1, 1, 63, 70, 64, True, None, 0),
+        (1, 1, 1, 64, 70, 64, True, None, 0),
+        (1, 1, 1, 65, 70, 64, True, None, 0),
+        (1, 4, 1, 4, 300, 128, True, None, 200),  # 16 rows, split
+        (1, 1, 1, 17, 300, 128, True, None, 200),  # 17 rows, tiled
+        (1, 4, 1, 5, 50, 32, True, None, 45),  # 20 rows over 4 heads, tiled
+        # Decode with group 1, 4 and 8.
+        (2, 1, 1, 1, 300, 128, True, 40, 299),
+        (4, 4, 1, 1, 617, 256, True, 512, 600),
+        (2, 8, 1, 1, 300, 128, True, None, 299),
+        # A window that leaves whole runs without a live key for some rows.
+        (1, 1, 1, 16, 616, 64, True, 64, 600),
+        # Skv a multiple of no tile; multi-row queries at q_offset > 0.
+        (2, 4, 2, 100, 203, 16, True, 17, 40),
+        (2, 4, 2, 100, 203, 256, False, None, 7),
+        # Fully masked rows: zeros (some rows; every row).
+        (1, 2, 1, 8, 64, 32, False, 2, 60),
+        (1, 2, 1, 1, 64, 32, True, 0, 10),
+        (1, 1, 1, 80, 90, 128, False, 3, 60),
+        # gemma3 training: batch 4 x 1024 tokens.
+        (4, 4, 1, 1024, 1024, 256, True, None, 0),
     ],
 )
 def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Hq, Hkv, Sq, Skv, D, causal, window, off):
@@ -260,11 +284,26 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Hq, Hkv, Sq, Skv, 
     torch.cuda.synchronize()
     assert fa.LAUNCHES == before + 1 and got.dtype == dtype
     want = fa.flash_attention_plain(q, k, v, causal, window, off).to(torch.float32)
+    # A row no key is visible to: the kernels write zeros, the twin the mean
+    # of v (module doc).
+    qi = off + np.arange(Sq)[:, None]
+    kj = np.arange(Skv)[None, :]
+    seen = np.ones((Sq, Skv), bool)
+    if causal:
+        seen &= qi >= kj
+    if window is not None:
+        seen &= qi - kj < window
+    dead = torch.from_numpy(~seen.any(axis=1)).to(cuda)
+    assert bool((got[:, :, dead] == 0).all())
+    want[:, :, dead] = 0
     err = (got.to(torch.float32) - want).abs()
     if dtype == torch.float32:
         assert bool((err <= 2e-5).all())
     else:
         assert bool((err <= 2**-7 * want.abs() + 1e-5).all())
-    # The model's (B, S, H, D) tensors, viewed as (B, H, S, D): same bits.
+    # The model's (B, S, H, D) tensors, viewed as (B, H, S, D): same bits;
+    # and the same inputs again: same bits (the split route merges its
+    # runs in a fixed order).
     views = [t.transpose(1, 2).contiguous().transpose(1, 2) for t in (q, k, v)]
     assert torch.equal(fa.flash_attention(*views, causal, window, off), got)
+    assert torch.equal(fa.flash_attention(q, k, v, causal, window, off), got)
