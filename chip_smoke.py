@@ -80,11 +80,15 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    beside the spread of two valid forwards, chunks of 128 and 256); a
    reduced xLSTM in
    f32 (``mlstm_chunk`` 8, prompts of 36) serves identical tokens on the
-   card and on the host, logits within 2e-4; one decode tick profiled.
-   The kernel phase (2) holds `mlstm_chunk` against its twin at the
-   serving shapes (prefill (16, 768, 512) with C = 256, decode (16, 1,
-   512)), each with a zero and a carried state in f32 and bf16, and at the
-   reference's f32 cases (`tests/test_mlstm_kernel.py`);
+   card and on the host, logits within 2e-4; one decode tick profiled,
+   its `mlstm_chunk` device time by route.  The kernel phase (2) holds
+   `mlstm_chunk` against its twin on each of its three routes (`plan`:
+   `mma` for bf16 prefill, `stream` for C = 1, `simt` for the rest) at
+   the serving shapes (prefill (16, 768, 512) with C = 256 and (16, 640,
+   512) with C = 128, decode (16, 1, 512)), at the reference's cases
+   (`tests/test_mlstm_kernel.py`) and at those with chunks of 1, each with
+   a zero and a carried state in f32 and bf16, then times prefill and
+   decode on each route with both bounds (tensor-core and f32-rate);
 8. training ``gemma3-1b`` at full width through
    ``repro_torch.launch.train.main`` (``--full-config --compress-grads
    --batch 4 --seq 1024 --steps 3``: past the 512 window, two loss chunks
@@ -112,6 +116,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -203,14 +208,18 @@ def random_claims(torch, G, N, gen, dev):
 
 #: Launches in one profiled window of `timed_call`.
 PROFILED_LAUNCHES = 30
+#: Name parts of the CUDA kernels a call launches beside its main one:
+#: `flash_attention`'s split route merges its runs in ``..._combine``, the
+#: `mlstm_chunk` mma route runs ``..._scan`` before its output kernel.
+HELPER_KERNELS = ("_combine", "_scan")
 
 
 def profiled_launches(torch, kernel, fn, n):
     """Profile ``n`` calls of ``fn``; return the device microseconds of
     every CUDA kernel named ``<kernel>_kernel...`` (a call may launch more
-    than one: `flash_attention`'s split route merges its runs in
-    ``flash_attention_kernel_combine``) and the number of calls the
-    profiler recorded (launches of the kernels not named ``_combine``).  It
+    than one, `HELPER_KERNELS`) and the number of calls the profiler
+    recorded (launches of the kernels not named as helpers), and the
+    microseconds per kernel name.  It
     now and then reports no device activity for a window this short: up
     to three windows are tried.  After a traced session of tens of
     thousands of kernels it may also record only part of a window's
@@ -218,10 +227,11 @@ def profiled_launches(torch, kernel, fn, n):
     for _ in range(3):
         _, kernels = profile_device(torch, lambda: [fn() for _ in range(n)])
         mine = {k: v for k, v in kernels.items() if f"{kernel}_kernel" in k}
-        calls = sum(c for k, (_, c) in mine.items() if "_combine" not in k)
+        calls = sum(c for k, (_, c) in mine.items()
+                    if not any(h in k for h in HELPER_KERNELS))
         if calls:
-            return sum(t for t, _ in mine.values()), calls
-    return 0.0, 0
+            return sum(t for t, _ in mine.values()), calls, {k: t for k, (t, _) in mine.items()}
+    return 0.0, 0, {}
 
 
 def timed_call(torch, label, kernel, fn, plain, library, nbytes, ops, peak):
@@ -238,10 +248,14 @@ def timed_call(torch, label, kernel, fn, plain, library, nbytes, ops, peak):
     lib = "none" if t["library_ms"] is None else f"{t['library_ms']:.4f}"
     log(f"kernel {label}: kernel_ms {t['ms']:.4f} plain_ms {t['plain_ms']:.4f} "
         f"library_ms {lib} bound_ms {b_ms:.6f} ({b_by})")
-    total_us, count = profiled_launches(torch, kernel, fn, PROFILED_LAUNCHES)
+    total_us, count, by_name = profiled_launches(torch, kernel, fn, PROFILED_LAUNCHES)
     if count:
+        short = re.compile(kernel + r"_kernel\w*(<[^>]*>)?")
+        split = "" if len(by_name) < 2 else "; " + ", ".join(
+            f"{short.search(name).group(0)} {us / count:.2f}"
+            for name, us in sorted(by_name.items(), key=lambda kv: -kv[1]))
         log(f"kernel {label}: device-only {total_us / count:.2f} us per launch "
-            f"(profiler, {count} of {PROFILED_LAUNCHES} launches recorded)")
+            f"(profiler, {count} of {PROFILED_LAUNCHES} launches recorded{split})")
     else:
         log(f"kernel {label}: device-only time not measured (the profiler "
             f"saw no device activity)")
@@ -575,15 +589,18 @@ def mlstm_inputs(torch, BH, S, Dh, dtype, carried, gen):
 
 
 def mlstm_bytes_ops(BH, S, Dh, C, itemsize, carried):
-    """Bytes, operations and their peak.  Bytes: q, k, v read and h written
-    once, the two f32 gates, the f32 state written (and read when carried).
-    Operations per chunk: 2 Dh flops per live pair t >= s for q k^T and
-    again for the scores against v (the kernel skips tiles above the
-    diagonal), 2 C Dh^2 each for inter and the state update.  q k^T takes
-    q and k as they come: with bf16 operands it is counted at the bf16
-    tensor-core rate (their products are exact in f32); every other
-    product has an f32 operand and is counted at the f32 rate.  The peak
-    returned puts all operations in the sum of those two times."""
+    """Bytes, and two counts of operations with their peaks.  Bytes: q, k,
+    v read and h written once, the two f32 gates, the f32 state written
+    (and read when carried).  Operations per chunk: 2 Dh flops per live
+    pair t >= s for q k^T and again for the scores against v, 2 C Dh^2 each
+    for inter and the state update.  Restated (for the tensor-core routes):
+    with bf16 operands every product at the bf16 dense rate, those with an
+    f32 operand (scores v, inter, the update) counted twice for their hi +
+    lo halves; with f32 operands the f32-rate count.  The f32-rate count:
+    q k^T at the bf16 rate with bf16 operands (else f32), every other
+    product at the f32 rate; the peak returned puts all operations in the
+    sum of those two times.  Returns (bytes, (ops, peak) restated, (ops,
+    peak) at the f32 rate)."""
     state = 4 * BH * (Dh * Dh + Dh)
     nbytes = 4 * BH * S * Dh * itemsize + 2 * 4 * BH * S + state * (2 if carried else 1)
     items = BH * (S // C)
@@ -591,33 +608,42 @@ def mlstm_bytes_ops(BH, S, Dh, C, itemsize, carried):
     qk = items * 2 * pairs * Dh
     rest = items * 2 * (pairs * Dh + 2 * C * Dh * Dh)
     qk_peak = BF16_OPS_PER_S if itemsize == 2 else F32_OPS_PER_S
-    return nbytes, qk + rest, (qk + rest) / (qk / qk_peak + rest / F32_OPS_PER_S)
+    old = (qk + rest, (qk + rest) / (qk / qk_peak + rest / F32_OPS_PER_S))
+    new = (qk + 2 * rest, BF16_OPS_PER_S) if itemsize == 2 else old
+    return nbytes, new, old
 
 
 def phase_mlstm_kernel(torch):
-    """`mlstm_chunk` against its twin: at the serving shapes with a zero and
-    a carried state, in f32 and bf16, and at the reference's f32 cases.
-    f32: h, S and n within 2e-4 (rtol and atol, the reference's tolerance
-    for its kernel); bf16: S and n within 2e-4 (both widen the same bf16
-    values), h within one bf16 rounding of the twin's (2**-7 of the value)
-    plus 2e-4, since both round an f32 result once.  Then the serving
-    shapes timed in bf16: prefill from zeros, decode from a carried state."""
+    """`mlstm_chunk` against its twin on every route `plan` gives: at the
+    serving shapes (prefill (16, 768, 512) with C = 256 and, as phase 7's
+    second forward runs it, (16, 640, 512) with C = 128; decode (16, 1,
+    512)), at the reference's cases (`tests/test_mlstm_kernel.py`) and at
+    those cases with chunks of 1 (the stream route over S positions), each
+    with a zero and a carried state in f32 and bf16.  f32: h, S and n within
+    2e-4 (rtol and atol, the reference's tolerance for its kernel); bf16: S
+    and n within 2e-4 (both widen the same bf16 values), h within one bf16
+    rounding of the twin's (2**-7 of the value) plus 2e-4, since both round
+    an f32 result once.  Each case logs its route.  Then prefill (zeros) and
+    decode (carried) timed on each route: bf16 and f32."""
     from repro_torch.kernels import mlstm_chunk as mc
 
     gen = torch.Generator().manual_seed(18)
-    serving = {"prefill": (16, 768, 512, 256), "decode": (16, 1, 512, 256)}
-    cases = [*serving.items(), *(("reference", c) for c in MLSTM_CASES)]
-    err, inputs = 0.0, {}
+    serving = {"prefill": (16, 768, 512, 256), "prefill, chunk 128": (16, 640, 512, 128),
+               "decode": (16, 1, 512, 256)}
+    cases = [*serving.items(), *(("reference", c) for c in MLSTM_CASES),
+             *(("reference, chunk 1", (*c[:3], 1)) for c in MLSTM_CASES)]
+    err, inputs, routes = 0.0, {}, set()
     for label, (BH, S, Dh, C) in cases:
-        dtypes = (torch.float32,) if label == "reference" else (torch.float32, torch.bfloat16)
-        for dtype in dtypes:
+        for dtype in (torch.float32, torch.bfloat16):
+            route = mc.plan(dtype, BH, S, Dh, min(C, S))
+            routes.add(route)
             for carried in (False, True):
                 args, state = mlstm_inputs(torch, BH, S, Dh, dtype, carried, gen)
                 h, (s_fin, n_fin) = mc.mlstm_chunk(*args, state=state, chunk=C)
                 torch.cuda.synchronize()
                 h_p, (s_p, n_p) = mc.mlstm_chunk_plain(*args, state=state, chunk=C)
                 what = f"mlstm_chunk {label} {(BH, S, Dh, C)} {str(dtype)[6:]} " + (
-                    "carried" if carried else "zero") + " state"
+                    "carried" if carried else "zero") + f" state, route {route}"
                 pairs = [("S", s_fin, s_p), ("n", n_fin, n_p)]
                 if dtype == torch.float32:
                     pairs.append(("h", h, h_p))
@@ -633,26 +659,40 @@ def phase_mlstm_kernel(torch):
                 log(f"{what}: max abs err h {float(eh.max()):.3g}, S "
                     f"{float((s_fin - s_p).abs().max()):.3g}, n "
                     f"{float((n_fin - n_p).abs().max()):.3g}")
-                if label != "reference" and dtype == torch.bfloat16:
-                    inputs[label, carried] = (args, state, C)
-    t = None
+                if label in ("prefill", "decode"):
+                    inputs[label, dtype, carried] = (args, state, C)
+                del args, state, h, s_fin, n_fin, h_p, s_p, n_p
+    check(routes == {"mma", "stream", "simt"}, f"mlstm_chunk: routes held {sorted(routes)}")
+    rows = {}
     for label, carried in (("prefill", False), ("decode", True)):
-        args, state, C = inputs[label, carried]
-        BH, S, Dh = args[0].shape
-        t = timed_call(
-            torch, f"mlstm_chunk {label} (BH={BH}, S={S}, Dh={Dh}, C={min(C, S)}, "
-            f"{'carried' if carried else 'zero'} state, bf16)", "mlstm_chunk",
-            lambda: mc.mlstm_chunk(*args, state=state, chunk=C),
-            lambda: mc.mlstm_chunk_plain(*args, state=state, chunk=C),
-            None, *mlstm_bytes_ops(BH, S, Dh, min(C, S), 2, carried),
-        )
-    # The row carries the most launched shape: a decode step; max_abs_err
+        for dtype in (torch.bfloat16, torch.float32):
+            args, state, C = inputs[label, dtype, carried]
+            BH, S, Dh = args[0].shape
+            itemsize = 2 if dtype == torch.bfloat16 else 4
+            route = mc.plan(dtype, BH, S, Dh, min(C, S))
+            nbytes, (ops, peak), old = mlstm_bytes_ops(BH, S, Dh, min(C, S), itemsize, carried)
+            name = (f"mlstm_chunk {label} (BH={BH}, S={S}, Dh={Dh}, C={min(C, S)}, "
+                    f"{'carried' if carried else 'zero'} state, {str(dtype)[6:]}, route {route})")
+            t = timed_call(
+                torch, name, "mlstm_chunk",
+                lambda: mc.mlstm_chunk(*args, state=state, chunk=C),
+                lambda: mc.mlstm_chunk_plain(*args, state=state, chunk=C),
+                None, nbytes, ops, peak,
+            )
+            b_old, by_old = bound_ms(nbytes, *old)
+            log(f"kernel {name}: bound_ms at the f32 rate {b_old:.6f} ({by_old}), "
+                f"restated {t['bound_ms']:.6f} ({t['bound_by']})")
+            rows[label, dtype] = dict(t, plan=route)
+    # The row carries the most launched shape: a bf16 decode step; max_abs_err
     # is the largest f32 difference (h, S, n) and bf16 state difference.
+    row = rows["decode", torch.bfloat16]
     return dict(
         name="mlstm_chunk", route="cuda",
         source="src/repro_torch/csrc/mlstm_chunk.cu",
         replaces="src/repro/kernels/mlstm_chunk/kernel.py:92",
-        max_abs_err=err, **t,
+        max_abs_err=err, **{k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                                  "bound_ms", "bound_by")},
+        extra=dict(plan=row["plan"]),
     )
 
 
@@ -813,8 +853,8 @@ def phase_event_kernel(torch, shapes):
     from repro_torch.kernels import pair_resolve as pr
 
     claim, idle = random_claims(torch, 96, 12, gen, dev)
-    _, count = profiled_launches(torch, "pair_resolve",
-                                 lambda: pr.pair_resolve(claim, idle), PROFILED_LAUNCHES)
+    _, count, _ = profiled_launches(torch, "pair_resolve",
+                                    lambda: pr.pair_resolve(claim, idle), PROFILED_LAUNCHES)
     log(f"profiler control: pair_resolve (96,12,12) after phases 3-5: {count} of "
         f"{PROFILED_LAUNCHES} launches recorded")
     return dict(
@@ -1557,10 +1597,13 @@ def phase_serving_xlstm(torch):
         tick()
         wall, kernels = profile_device(torch, tick)
     busy = sum(t for t, _ in kernels.values())
-    by = {"mlstm_chunk": 0.0, "matmul (cuBLAS)": 0.0, "other": 0.0}
+    by = {"mlstm_chunk stream": 0.0, "mlstm_chunk mma": 0.0, "mlstm_chunk simt": 0.0,
+          "matmul (cuBLAS)": 0.0, "other": 0.0}
     for name, (us, _) in kernels.items():
         if "mlstm_chunk_kernel" in name:
-            by["mlstm_chunk"] += us
+            route = ("stream" if "_stream" in name else
+                     "mma" if "_mma" in name or "_scan" in name else "simt")
+            by[f"mlstm_chunk {route}"] += us
         elif any(w in name.lower() for w in ("gemm", "gemv", "cutlass", "sm90_xmma", "nvjet")):
             by["matmul (cuBLAS)"] += us
         else:
@@ -1862,7 +1905,8 @@ def main() -> int:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({"kernels": [{**{k: r[k] for k in keys}, **r.get("extra", {})}
+                                  for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,79 @@
+// Warp-level bf16 tensor-core building blocks for sm_90a, shared by the
+// `mma` routes of flash_attention.cu and mlstm_chunk.cu: asynchronous
+// global -> shared copies, `ldmatrix` fragment loads, `mma.sync.m16n8k16`
+// with f32 accumulation, and the hi + lo split of an f32 operand into two
+// bf16 operands.  Fragment layouts are the PTX ISA's for m16n8k16: lane
+// (g = lane / 4, t = lane % 4) holds rows g and g + 8, columns 2 t and
+// 2 t + 1 of each 8-column tile of C; A's registers 0-3 are (rows 0-7,
+// k 0-7), (rows 8-15, k 0-7), (rows 0-7, k 8-15), (rows 8-15, k 8-15).
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+__device__ inline uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros where !pred (src is
+// then not read).
+__device__ inline void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ inline void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ inline void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8 x 8 bf16 matrices from shared-memory byte address a (lanes 8 i ..
+// 8 i + 7 give matrix i's row addresses).
+__device__ inline void ldsm_x4(uint32_t* r, uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ inline void ldsm_x4_trans(uint32_t* r, uint32_t a) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// c += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), c 16 x 8 f32.
+__device__ inline void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
+                                uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ inline uint32_t as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// Two f32 as P_hi = bf16(x) and P_lo = bf16(x - P_hi), packed in pairs.
+__device__ inline void split_pair(float x0, float x1, uint32_t& hi,
+                                  uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h)));
+}
+
+}  // namespace

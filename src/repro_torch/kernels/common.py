@@ -35,6 +35,8 @@ _SOURCES = (
     "pair_resolve.cu", "event_resolve.cu", "port_stats.cu", "lp_terms.cu",
     "flash_attention.cu", "mlstm_chunk.cu", "quant.cu",
 )
+# Headers the sources include: they enter the digest, not the compile line.
+_HEADERS = ("mma_sync.cuh",)
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -52,8 +54,8 @@ _SIGNATURES = {
     "lp_terms_batch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "lp_terms": (_P, _P, _P, _F, _F, _P, _P, _I, _I, _P),
     "flash_attention": (_P,) * 5 + (_I,) * 7 + (_L,) * 12 + (_I, _I, _I, _F) + (_I,) * 4 + (_P,),
-    "mlstm_chunk": (_P,) * 10 + (_I,) * 5 + (_P,),
-    "mlstm_chunk_smem": (_I, _I, _P, _P),
+    "mlstm_chunk": (_P,) * 11 + (_I,) * 6 + (_P,),
+    "mlstm_chunk_smem": (_I, _I, _I, _P, _P),
     "quantize": (_P, _P, _P, _P, _I, _I, _P),
     "dequantize": (_P, _P, _P, _I, _I, _P),
 }
@@ -71,7 +73,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return h.hexdigest()[:16]

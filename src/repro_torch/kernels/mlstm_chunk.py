@@ -23,12 +23,28 @@ always starts from zeros); with a state, what the reference model's
 `_mlstm_chunk_scan` computes, so serving carries the state from prefill
 into every decode step through the kernel.
 
-CUDA tensors launch the hand-written kernel (``csrc/mlstm_chunk.cu``);
+CUDA tensors launch the hand-written kernels (``csrc/mlstm_chunk.cu``);
 CPU tensors take `mlstm_chunk_plain`, the same arithmetic step by step.
-The kernel is bound by operations at prefill (f32 products on CUDA cores)
-and by the state's bytes at decode; its design (the state's value columns
-split over blocks, each block recomputing its chunk's scores) is in the
-source.  `LAUNCHES` counts kernel launches.
+`plan` picks the route of a call from its shape and dtype alone:
+
+* ``"stream"`` when C = 1 (decode, either dtype): bound by the state's
+  bytes, read once and written once; blocks of 16 value columns hold their
+  slice of S in registers with every load issued up front (Dh / 16 x BH
+  blocks), positions in order, all in f32;
+* ``"mma"`` for bf16 with C >= 2 and Dh a multiple of 64 (prefill): bf16
+  tensor-core products with f32 accumulation, each f32 operand split hi +
+  lo into two bf16 products; two kernels, a scan that carries the state
+  through the chunks in mma accumulators and writes each chunk's starting
+  state (split) and normalizer to scratch, then one output block per (64
+  rows, 128 columns, chunk, (b, h)), fully parallel over chunks;
+* ``"simt"`` otherwise (f32 prefill, bf16 at Dh 16 or 32): f32 products on
+  CUDA cores, each block owning some value columns of the state through
+  the chunk loop.
+
+The source note gives each route's bound and design.  A CUDA tensor of a
+shape no route takes raises.  `LAUNCHES` counts one per call that reaches
+a kernel, whatever number of CUDA kernels its route launches (the mma
+route launches two).
 """
 
 from __future__ import annotations
@@ -40,22 +56,41 @@ import torch
 
 from repro_torch.kernels.common import launch, refuse_grad, stream_of
 
-__all__ = ["mlstm_chunk", "mlstm_chunk_plain", "block_smem", "LAUNCHES"]
+__all__ = [
+    "mlstm_chunk", "mlstm_chunk_plain", "block_smem", "plan", "scratch_bytes", "LAUNCHES",
+]
 
-#: Kernel launches in this process (CPU calls are not counted).
+#: Calls that reached a kernel in this process (CPU calls are not counted).
 LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTE_CODES = {"simt": 0, "mma": 1, "stream": 2}
+
+
+def plan(dtype: torch.dtype, BH: int, S: int, Dh: int, C: int) -> str:
+    """The route of a call (module doc); the operands are already valid."""
+    if C == 1:
+        return "stream"
+    if dtype == torch.bfloat16 and Dh % 64 == 0:
+        return "mma"
+    return "simt"
+
+
+def scratch_bytes(BH: int, S: int, Dh: int, C: int) -> int:
+    """Device scratch of the mma route: each chunk's starting state as hi
+    and lo bf16 planes, then its normalizer in f32."""
+    return S // C * BH * Dh * (4 * Dh + 4)
 
 
 @functools.lru_cache(maxsize=None)
-def block_smem(device: int, Dh: int, C: int) -> tuple[int, int]:
-    """(bytes of shared memory one block of the kernel takes at (Dh, C),
-    the most a block may take on CUDA device ``device``), as the kernel's
-    source computes them."""
+def block_smem(device: int, route: str, Dh: int, C: int) -> tuple[int, int]:
+    """(bytes of shared memory one block of ``route`` takes at (Dh, C), 0
+    where the route does not take them; the most a block may take on CUDA
+    device ``device``), as the kernels' source computes them."""
     need, limit = ctypes.c_longlong(), ctypes.c_int()
     with torch.cuda.device(device):
-        launch("mlstm_chunk_smem", Dh, C, ctypes.byref(need), ctypes.byref(limit))
+        launch("mlstm_chunk_smem", _ROUTE_CODES[route], Dh, C, ctypes.byref(need),
+               ctypes.byref(limit))
     return need.value, limit.value
 
 
@@ -146,11 +181,14 @@ def mlstm_chunk(q, k, v, log_f, log_i, state=None, chunk: int = 256):
         raise ValueError(f"mlstm_chunk: unsupported device {q.device}")
     refuse_grad("mlstm_chunk", q, k, v, log_f, log_i, *(state or ()))
     BH, S, Dh = q.shape
-    need, limit = block_smem(q.device.index, Dh, C)
+    route = plan(q.dtype, BH, S, Dh, C)
+    if route == "mma" and S // C > 65535:
+        raise ValueError(f"mlstm_chunk: {S // C} chunks, more than the grid's 65535")
+    need, limit = block_smem(q.device.index, route, Dh, C)
     if need > limit:
         raise ValueError(
             f"mlstm_chunk: chunk={C} with Dh={Dh} needs {need} bytes of shared "
-            f"memory, more than a block's {limit} on {q.device}"
+            f"memory ({route} route), more than a block's {limit} on {q.device}"
         )
     q, k, v, log_f, log_i = (t.contiguous() for t in (q, k, v, log_f, log_i))
     s0, n0 = (None, None) if state is None else (t.contiguous() for t in state)
@@ -160,11 +198,16 @@ def mlstm_chunk(q, k, v, log_f, log_i, state=None, chunk: int = 256):
     h = torch.empty_like(q)
     s_out = torch.empty((BH, Dh, Dh), dtype=torch.float32, device=q.device)
     n_out = torch.empty((BH, Dh), dtype=torch.float32, device=q.device)
+    scratch = (
+        torch.empty(scratch_bytes(BH, S, Dh, C), dtype=torch.uint8, device=q.device)
+        if route == "mma" else None
+    )
     launch(
         "mlstm_chunk", q.data_ptr(), k.data_ptr(), v.data_ptr(), log_f.data_ptr(),
         log_i.data_ptr(), None if s0 is None else s0.data_ptr(),
         None if n0 is None else n0.data_ptr(), h.data_ptr(), s_out.data_ptr(),
-        n_out.data_ptr(), _DTYPE_CODES[q.dtype], BH, S, Dh, C, stream_of(q),
+        n_out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        _DTYPE_CODES[q.dtype], BH, S, Dh, C, _ROUTE_CODES[route], stream_of(q),
     )
     LAUNCHES += 1
     return h, (s_out, n_out)

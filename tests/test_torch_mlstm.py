@@ -1,8 +1,9 @@
 """`repro_torch.kernels.mlstm_chunk` on the host: the plain twin (which the
 wrapper takes for CPU tensors) against the reference's naive recurrence
 ``mlstm_ref``, its interpret-mode Pallas kernel ``mlstm_chunk_pallas`` and
-the model's chunkwise form ``_mlstm_chunk_scan``; the kernel against the
-twin on the card (marked ``cuda``; they skip without one).
+the model's chunkwise form ``_mlstm_chunk_scan``; `plan`'s routes on the
+host; every route of the kernel against the twin on the card (marked
+``cuda``; they skip without one).
 
 Tolerances, the reference's own for its kernel (`tests/test_mlstm_kernel.py`):
   * 2e-4 (rtol and atol) in f32 against ``mlstm_ref``, the Pallas kernel and
@@ -165,6 +166,30 @@ def test_validation_names_the_operand():
         mc.mlstm_chunk(*wide)
 
 
+# ------------------------------------------------------------------- routes
+@pytest.mark.parametrize("dtype,BH,S,Dh,C,route", [
+    (torch.bfloat16, 16, 768, 512, 256, "mma"),   # xLSTM prefill
+    (torch.bfloat16, 16, 640, 512, 128, "mma"),   # chunks of 128 (smoke phase 7)
+    (torch.bfloat16, 1, 128, 64, 32, "mma"),      # a chunk below 64
+    (torch.bfloat16, 3, 96, 128, 48, "mma"),
+    (torch.bfloat16, 16, 1, 512, 1, "stream"),    # xLSTM decode
+    (torch.float32, 16, 1, 512, 1, "stream"),
+    (torch.float32, 2, 64, 32, 1, "stream"),      # chunks of one over S positions
+    (torch.bfloat16, 2, 40, 16, 1, "stream"),
+    (torch.float32, 16, 768, 512, 256, "simt"),   # f32 prefill
+    (torch.float32, 2, 256, 128, 128, "simt"),
+    (torch.bfloat16, 2, 64, 32, 16, "simt"),      # Dh the mma route does not take
+    (torch.bfloat16, 3, 96, 16, 32, "simt"),
+])
+def test_plan_picks_the_route(dtype, BH, S, Dh, C, route):
+    assert mc.plan(dtype, BH, S, Dh, C) == route
+
+
+def test_scratch_holds_each_chunks_split_state_and_normalizer():
+    # (S / C) chunks x BH x (hi and lo bf16 planes of Dh x Dh, n_c in f32).
+    assert mc.scratch_bytes(16, 768, 512, 256) == 3 * 16 * (512 * 512 * 2 * 2 + 512 * 4)
+
+
 def test_cpu_call_leaves_launches_unchanged():
     before = mc.LAUNCHES
     mc.mlstm_chunk(*_t(_inputs(1, 16, 16)), chunk=8)
@@ -182,36 +207,93 @@ def cuda():
 
 @pytest.mark.cuda
 def test_main_path_shapes_fit_one_block(cuda):
-    """Prefill (C = 256) and decode (C = 1) at Dh = 512 fit a block's shared
-    memory on the card; the reference's widest case (Dh = 128, C = 128) too.
-    A chunk that does not fit is refused, naming the shared memory."""
+    """Each route's main-path shapes fit a block's shared memory on the
+    card: prefill (C = 256, and 128) and decode (C = 1) at Dh = 512, the
+    reference's widest case (Dh = 128, C = 128) on the f32 route.  A chunk
+    that does not fit is refused, naming the shared memory."""
     dev = torch.cuda.current_device()
-    for Dh, C in ((512, 256), (512, 1), (128, 128)):
-        need, limit = mc.block_smem(dev, Dh, C)
-        assert 0 < need <= limit, (Dh, C, need, limit)
+    for route, Dh, C in (("mma", 512, 256), ("mma", 512, 128), ("stream", 512, 1),
+                         ("simt", 512, 256), ("simt", 128, 128)):
+        need, limit = mc.block_smem(dev, route, Dh, C)
+        assert 0 < need <= limit, (route, Dh, C, need, limit)
     big = _t(_inputs(1, 4096, 512), device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         mc.mlstm_chunk(*big, chunk=4096)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("carried", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize(
-    "BH,S,D,chunk", REF_CASES + [(16, 1, 512, 256), (16, 768, 512, 256), (4, 40, 16, 8)]
-)
-def test_kernel_matches_plain(cuda, BH, S, D, chunk, dtype, carried):
-    args = _t(_inputs(BH, S, D, seed=S * D), dtype, cuda)
-    state = tuple(t.to(cuda) for t in map(torch.from_numpy, _state(BH, D, seed=D))) if carried else None
+@pytest.mark.parametrize("route,Dh,C,need", [
+    # The output kernel: q's 64 rows, two ring stages of 64 x 128 bf16, F
+    # and log_i of the chunk, n_c (the scan kernel takes less): two blocks
+    # share an SM's 228 KB.
+    ("mma", 512, 256, 2 * 64 * 512 + 2 * 2 * 64 * 128 + 4 * (2 * 256 + 512 + 4)),
+    ("mma", 512, 128, 2 * 64 * 512 + 2 * 2 * 64 * 128 + 4 * (2 * 128 + 512 + 4)),
+    # Dh = 64: the scan's ring of two (k, v) tile pairs is the larger.
+    ("mma", 64, 32, 4 * 64 * 64 * 2 + 4 * (2 * 64 + 4)),
+    ("stream", 512, 1, 4 * 8 * 18),  # per warp: 16 column sums, q . n, q . k
+    ("simt", 512, 256, 4 * (512 * 64 + 512 + 2 * 16 * 516 + 16 * 64 + 16 * 16 + 16 + 3 * 256)),
+    ("mma", 32, 16, 0),      # routes report 0 where they do not take the shape
+    ("stream", 512, 256, 0),
+])
+def test_shared_memory_report_per_route(cuda, route, Dh, C, need):
+    got, limit = mc.block_smem(torch.cuda.current_device(), route, Dh, C)
+    assert got == need
+    if route == "mma" and Dh == 512:
+        assert 2 * (got + 1024) <= 228 * 1024  # two blocks an SM (1 KB reserved each)
+
+
+def _pad_like_the_model(args, C):
+    """Zero q/k/v, log_f = 0 and log_i = -30 after the last row, up to a
+    multiple of C (`models/xlstm.py:mlstm_apply`)."""
+    q, k, v, lf, li = args
+    pad = -q.shape[1] % C
+    F = torch.nn.functional.pad
+    return [F(t, (0, 0, 0, pad)) for t in (q, k, v)] + [F(lf, (0, pad)), F(li, (0, pad), value=-30.0)]
+
+
+def _matches_plain(args, state, chunk, dtype):
+    route = mc.plan(dtype, *args[0].shape[:3], min(chunk, args[0].shape[1]))
     before = mc.LAUNCHES
     h, (S_fin, n_fin) = mc.mlstm_chunk(*args, state=state, chunk=chunk)
     torch.cuda.synchronize()
     assert mc.LAUNCHES == before + 1
     h_p, (S_p, n_p) = mc.mlstm_chunk_plain(*args, state=state, chunk=chunk)
-    torch.testing.assert_close(S_fin, S_p, **TOL)
-    torch.testing.assert_close(n_fin, n_p, **TOL)
+    torch.testing.assert_close(S_fin, S_p, **TOL, msg=lambda m: f"{route}: S {m}")
+    torch.testing.assert_close(n_fin, n_p, **TOL, msg=lambda m: f"{route}: n {m}")
     if dtype == torch.float32:
-        torch.testing.assert_close(h, h_p, **TOL)
+        torch.testing.assert_close(h, h_p, **TOL, msg=lambda m: f"{route}: h {m}")
     else:
         err = (h.float() - h_p.float()).abs()
-        assert bool((err <= 2**-7 * h_p.float().abs() + 2e-4).all()), float(err.max())
+        assert bool((err <= 2**-7 * h_p.float().abs() + 2e-4).all()), (route, float(err.max()))
+    return h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "BH,S,D,chunk",
+    REF_CASES + [
+        (16, 1, 512, 256), (16, 768, 512, 256), (16, 640, 512, 128), (4, 40, 16, 8),
+        (3, 96, 128, 48),                                   # a chunk below 64, not a multiple of 16
+        (2, 64, 32, 1), (2, 12, 16, 1), (2, 16, 128, 1),    # chunks of one over S positions
+    ],
+)
+def test_kernel_matches_plain(cuda, BH, S, D, chunk, dtype, carried):
+    """Every route against the twin (`plan` gives the route: bf16 prefill
+    at Dh 64-512 on mma, C = 1 on stream, the rest on simt)."""
+    args = _t(_inputs(BH, S, D, seed=S * D), dtype, cuda)
+    state = tuple(t.to(cuda) for t in map(torch.from_numpy, _state(BH, D, seed=D))) if carried else None
+    _matches_plain(args, state, chunk, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_matches_plain_on_a_padded_prompt(cuda, dtype):
+    """xLSTM's served prompt: 600 rows padded to 768 as the model pads
+    them, chunks of 256, a carried state."""
+    args = _pad_like_the_model(_t(_inputs(16, 600, 512, seed=600), dtype, cuda), 256)
+    assert args[0].shape[1] == 768
+    state = tuple(t.to(cuda) for t in map(torch.from_numpy, _state(16, 512, seed=6)))
+    h = _matches_plain(args, state, 256, dtype)
+    assert bool((h[:, 600:] == 0).all())  # zero q: padded rows add nothing
