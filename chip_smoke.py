@@ -11,7 +11,10 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    152 ports, both LP-terms kernels at 300 flat ports), with its time
    (CUDA events, median of 30 runs after warm-up), the twin's, one library
    call's where one computes the same function, the least time the card
-   could take (`bound_ms`) and the profiler's device-only time.
+   could take (`bound_ms`) and the profiler's device-only time, the
+   library call's beside it (all its kernels); each LP-terms shape logs
+   the tiles `lp_terms.plan` picked (grid, tiles, split p), and the
+   ``kernels`` line carries the main path's as ``plan``.
    `event_resolve` is held against its twin once phases 3 and 5 have given
    it real calendar states: mask for mask (start, first claimers, blocked)
    under both disciplines, on every round of a flow calendar run on the
@@ -30,7 +33,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    pair engine's and to the flow engine's on the CPU, `event_resolve`
    launched once per flow-calendar round and `pair_resolve` never, and
    under reserving as many rounds as the pair engine; then a
-   stage-by-stage timing pass, the calendar under both engines;
+   stage-by-stage timing pass, the calendar under both engines, and
+   traced passes (the LP's 100 steps with its `lp_terms_batch` share);
 4. the same LP solutions through `run_batch` on the GPU and on the CPU:
    orders, core choices, establish and complete times and CCTs must be
    bit-identical; phases 3 and 4 again on 8 trace-release instances;
@@ -234,11 +238,23 @@ def profiled_launches(torch, kernel, fn, n):
     return 0.0, 0, {}
 
 
+def library_device_us(torch, fn, n):
+    """Device microseconds per call of ``fn`` summed over every kernel it
+    launches (the profiler; up to three windows, as `profiled_launches`)."""
+    for _ in range(3):
+        _, kernels = profile_device(torch, lambda: [fn() for _ in range(n)])
+        if kernels:
+            return sum(t for t, _ in kernels.values()) / n
+    return None
+
+
 def timed_call(torch, label, kernel, fn, plain, library, nbytes, ops, peak):
     """Time one kernel call at one shape and log it: ``kernel_ms`` and
     ``plain_ms`` (CUDA events), ``library_ms`` where one PyTorch call
     computes the same function, the bound, and the profiler's device-only
-    time per launch.  Returns the numbers of the ``kernels`` line."""
+    time per launch (the library call's too, over all its kernels, so the
+    two compare like with like).  Returns the numbers of the ``kernels``
+    line."""
     b_ms, b_by = bound_ms(nbytes, ops, peak)
     t = dict(
         ms=time_ms(torch, fn), plain_ms=time_ms(torch, plain),
@@ -259,6 +275,11 @@ def timed_call(torch, label, kernel, fn, plain, library, nbytes, ops, peak):
     else:
         log(f"kernel {label}: device-only time not measured (the profiler "
             f"saw no device activity)")
+    if library is not None:
+        us = library_device_us(torch, library, PROFILED_LAUNCHES)
+        log(f"kernel {label}: library device-only "
+            + ("not measured (the profiler saw no device activity)" if us is None
+               else f"{us:.2f} us per call (profiler, all its kernels)"))
     return t
 
 
@@ -279,6 +300,12 @@ def lp_terms_library(torch, X, p_rho, p_tau, inv_R, dok):
         torch.bmm(Xt, p_rho).amax(dim=2) * inv_R[:, None],
         torch.bmm(Xt, p_tau).amax(dim=2) * dok[:, None],
     )
+
+
+def lp_plan(p):
+    """The JSON form of an LP-terms plan: its grid, tiles and split."""
+    return dict(grid=list(p.grid), rows=p.rows, ports=p.ports,
+                rows_per_thread=p.rows_per_thread, groups=p.groups, split=p.split)
 
 
 def check_lp_terms(label, got, want, M, rtol):
@@ -314,6 +341,7 @@ def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays,
                   wide_lp_arrays, single_insts):
     from repro_torch.core.lp import _precedence_X
     from repro_torch.kernels import lp_terms as lt
+    from repro_torch.kernels.common import sm_count
     from repro_torch.kernels import pair_resolve as pr
     from repro_torch.kernels import port_stats as ps
 
@@ -407,9 +435,12 @@ def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays,
             got, lt.lp_terms_batch_plain(*args), M, lt.rtol(M),
         ))
         batch_args[label] = args
+    sms = sm_count(dev)
     for label in ("wide bucket", "paper bucket"):  # the main path's last
         args = batch_args[label]
         B, M, P = args[1].shape
+        plan = lp_plan(lt.plan(B, M, P, sms))
+        log(f"lp_terms_batch {label} (B={B}, M={M}, P={P}): plan {json.dumps(plan)}")
         t = timed_call(
             torch, f"lp_terms_batch {label} (B={B}, M={M}, P={P})", "lp_terms_batch",
             lambda: lt.lp_terms_batch(*args), lambda: lt.lp_terms_batch_plain(*args),
@@ -420,7 +451,7 @@ def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays,
         name="lp_terms_batch", route="cuda",
         source="src/repro_torch/csrc/lp_terms.cu",
         replaces="src/repro/kernels/lp_terms/kernel.py:101",
-        max_abs_err=err, **t,
+        max_abs_err=err, **t, extra=dict(plan=plan),
     ))
 
     # lp_terms: one instance, scalar scales; the paper instance (the main
@@ -440,6 +471,8 @@ def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays,
     for label in reversed(list(single)):  # the main path's shape last
         args = single[label]
         M, P = args[1].shape
+        plan = lp_plan(lt.plan(1, M, P, sms))
+        log(f"lp_terms {label} (M={M}, P={P}): plan {json.dumps(plan)}")
         t = timed_call(
             torch, f"lp_terms {label} (M={M}, P={P})", "lp_terms",
             lambda: lt.lp_terms(*args), lambda: lt.lp_terms_plain(*args),
@@ -450,7 +483,7 @@ def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays,
         name="lp_terms", route="cuda",
         source="src/repro_torch/csrc/lp_terms.cu",
         replaces="src/repro/kernels/lp_terms/kernel.py:183",
-        max_abs_err=err, **t,
+        max_abs_err=err, **t, extra=dict(plan=plan),
     ))
     return rows
 
@@ -1087,10 +1120,13 @@ def stage_times(torch, label, instances):
             continue
         busy_us = sum(t for t, _ in kernels.values())
         top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:3]
+        lp_us, lp_n = (sum(v[i] for k, v in kernels.items() if "lp_terms_batch_kernel" in k)
+                       for i in (0, 1))
         log(f"{label} traced {name}: wall {wall:.4f} s, device busy "
             f"{busy_us / 1e6:.4f} s ({100 * busy_us / 1e6 / wall:.1f} %), "
             f"{sum(c for _, c in kernels.values())} device kernels; top: "
-            + "; ".join(f"{k[:60]} {t / 1e3:.2f} ms x{c}" for k, (t, c) in top))
+            + "; ".join(f"{k[:60]} {t / 1e3:.2f} ms x{c}" for k, (t, c) in top)
+            + (f"; lp_terms_batch {lp_us / 1e3:.3f} ms x{lp_n}" if lp_n else ""))
     return times
 
 

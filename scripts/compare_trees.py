@@ -1,20 +1,34 @@
 #!/usr/bin/env python3
-"""Serving gemma3-1b and xlstm-1.3b and training gemma3-1b at full width:
-two checkouts of the repo side by side on one NVIDIA GPU.
+"""The LP stage of the paper-default ensemble, serving gemma3-1b and
+xlstm-1.3b and training gemma3-1b at full width: two checkouts of the repo
+side by side on one NVIDIA GPU.
 
-    python3 scripts/compare_trees.py BEFORE AFTER [--phases 6,7,8] [--out DIR]
+    python3 scripts/compare_trees.py BEFORE AFTER [--phases 3,6,7,8] [--out DIR]
 
 Runs each checkout in a fresh process, in the order BEFORE, AFTER, AFTER,
 BEFORE, so that a drift of the host's clock over the call shows as a gap
 between the two runs of one checkout.  Each run builds that checkout's
-kernels, times the host's cost of issuing one `flash_attention` call at
-gemma3-1b's decode shape (4 slots, 4 query heads on 1 kv head, 617 keys,
-offset 600, bf16; with and without the 512 window) and one `mlstm_chunk`
-call at xlstm-1.3b's (4 slots x 4 heads, one position, Dh 512, bf16, a
-carried state), then runs the checkout's own `chip_smoke.py` phases among
-6 (serving gemma3-1b), 7 (serving xlstm-1.3b) and 8 (training gemma3-1b
-with compressed gradients), all their checks included; ``--phases``
-picks them (default: all three).  Each run's log lands in
+kernels, then runs the phases picked among:
+
+* 3, the LP stage: the host's cost of issuing one `lp_terms` call at one
+  paper instance's shape (M = 100, P = 20) and one `lp_terms_batch` call
+  at the paper bucket's (B = 32, M = 104, P = 24), then the checkout's own
+  `chip_smoke.stage_times` on the 32 paper-default instances (stage
+  seconds, the LP at 3000 steps included, and traced passes: the LP's 100
+  steps with their busy time and `lp_terms_batch` share).  After the four
+  runs a fifth process loads both checkouts' `lp_terms` wrappers and times
+  the same two calls through each in turn, BEFORE, AFTER, AFTER, BEFORE
+  in every one of 50 rounds, so that the host's drift falls on both
+  alike: the per-round difference AFTER - BEFORE is the wrappers' own;
+* 6, 7 and 8, the checkout's own `chip_smoke.py` phases (serving
+  gemma3-1b, serving xlstm-1.3b, training gemma3-1b with compressed
+  gradients), all their checks included, after the host's cost of issuing
+  one `flash_attention` call at gemma3-1b's decode shape (4 slots, 4
+  query heads on 1 kv head, 617 keys, offset 600, bf16; with and without
+  the 512 window) and one `mlstm_chunk` call at xlstm-1.3b's (4 slots x 4
+  heads, one position, Dh 512, bf16, a carried state).
+
+``--phases`` picks them (default: 6, 7 and 8).  Each run's log lands in
 DIR/<n>_<BEFORE|AFTER>.log (default ``results/compare_trees``); the lines
 that carry the end-to-end numbers are printed run by run.  Exits non-zero
 if any run fails.
@@ -31,8 +45,9 @@ import time
 from pathlib import Path
 
 # Lines of a run's log that carry the numbers compared.
-KEYS = ("issue", "tokens/s", "prefill s per wave", "prefill wave (", "profiled decode tick:",
-        "train step", "profiled train step:")
+KEYS = ("issue", "stage seconds", "traced lp_100_steps", "tokens/s", "prefill s per wave",
+        "prefill wave (", "profiled decode tick:", "train step", "profiled train step:")
+# chip_smoke.py's phase functions; phase 3 is `phase_lp_stage` here.
 PHASES = {"6": "phase_serving", "7": "phase_serving_xlstm", "8": "phase_training"}
 
 
@@ -89,6 +104,100 @@ def issue_cost(torch, fa, mc) -> None:
                   flush=True)
 
 
+def lp_issue_cost(torch) -> None:
+    """Host cost of issuing one call of each LP-terms kernel at the main
+    path's shapes (random operands on the card)."""
+    from repro_torch.kernels import lp_terms as lt
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda")
+
+    x, rho, tau = rand(100, 100), rand(100, 20), rand(100, 20)
+    us = per_call_us(torch, lambda: lt.lp_terms(x, rho, tau, 0.05, 2.5))
+    print(f"issue: lp_terms (M=100, P=20): {us:.2f} us of host time per call", flush=True)
+    args = (rand(32, 104, 104), rand(32, 104, 24), rand(32, 104, 24), rand(32), rand(32))
+    us = per_call_us(torch, lambda: lt.lp_terms_batch(*args))
+    print(f"issue: lp_terms_batch (B=32, M=104, P=24): {us:.2f} us of host time per call",
+          flush=True)
+    if hasattr(lt, "plan"):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        us = per_call_us(torch, lambda: lt.plan(32, 104, 24, sms))
+        print(f"issue: of which plan() {us:.2f} us", flush=True)
+
+
+def load_lp_terms(tree: Path):
+    """Checkout ``tree``'s `repro_torch.kernels.lp_terms`, its kernels built
+    and loaded.  Its modules leave `sys.modules` once imported (they keep
+    their own references), so the next call imports the next checkout's."""
+    import importlib
+
+    src = str(tree / "src")
+    sys.path.insert(0, src)
+    try:
+        lt = importlib.import_module("repro_torch.kernels.lp_terms")
+        importlib.import_module("repro_torch.kernels.common").library()
+    finally:
+        sys.path.remove(src)
+        for name in [n for n in sys.modules if n.split(".")[0] == "repro_torch"]:
+            del sys.modules[name]
+    return lt
+
+
+def lp_issue_interleaved(torch, before: Path, after: Path, rounds: int = 50,
+                         calls: int = 200) -> None:
+    """Host microseconds per call of `lp_terms` (M = 100, P = 20) and
+    `lp_terms_batch` (B = 32, M = 104, P = 24) through both checkouts'
+    wrappers in this one process, timed in turn (module doc): each tree's
+    median over its 2 ``rounds`` batches of ``calls`` calls, and the
+    median and quartiles of the per-round difference AFTER - BEFORE."""
+    trees = {"BEFORE": load_lp_terms(before), "AFTER": load_lp_terms(after)}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda")
+
+    single = (rand(100, 100), rand(100, 20), rand(100, 20), 0.05, 2.5)
+    batch = (rand(32, 104, 104), rand(32, 104, 24), rand(32, 104, 24), rand(32), rand(32))
+    fns = {(name, kind): (lambda lt=lt: lt.lp_terms(*single)) if kind == "lp_terms"
+           else (lambda lt=lt: lt.lp_terms_batch(*batch))
+           for name, lt in trees.items() for kind in ("lp_terms", "lp_terms_batch")}
+    with torch.inference_mode():
+        for fn in fns.values():  # warm: first launches, plan caches
+            fn()
+        torch.cuda.synchronize()
+        samples = {key: [] for key in fns}
+        for _ in range(rounds):
+            for name in ("BEFORE", "AFTER", "AFTER", "BEFORE"):
+                for kind in ("lp_terms", "lp_terms_batch"):
+                    fn = fns[name, kind]
+                    t0 = time.perf_counter()
+                    for _ in range(calls):
+                        fn()
+                    samples[name, kind].append((time.perf_counter() - t0) / calls * 1e6)
+                    torch.cuda.synchronize()
+    for kind in ("lp_terms", "lp_terms_batch"):
+        b, a = samples["BEFORE", kind], samples["AFTER", kind]
+        # Round r's two BEFORE and two AFTER batches.
+        diff = [(a[2 * r] + a[2 * r + 1] - b[2 * r] - b[2 * r + 1]) / 2 for r in range(rounds)]
+        q1, med, q3 = statistics.quantiles(diff, n=4)
+        print(f"issue interleaved: {kind}: BEFORE {statistics.median(b):.2f} us, AFTER "
+              f"{statistics.median(a):.2f} us of host time per call; AFTER - BEFORE per "
+              f"round median {med:+.2f} us (quartiles {q1:+.2f}, {q3:+.2f}; {rounds} rounds "
+              f"of {calls} calls)", flush=True)
+
+
+def phase_lp_stage(torch, smoke) -> None:
+    """Phase 3: the LP-terms issue costs, then the checkout's stage pass
+    on the paper-default ensemble."""
+    from repro_torch.traffic.instances import paper_default_instance
+
+    lp_issue_cost(torch)
+    smoke.stage_times(torch, "paper default",
+                      [paper_default_instance(seed=s) for s in smoke.SEEDS])
+
+
 def run_tree(tree: Path, phases: list[str]) -> int:
     """One run: that checkout's kernels, the issue costs, its phases."""
     import torch
@@ -110,9 +219,13 @@ def run_tree(tree: Path, phases: list[str]) -> int:
     # As `chip_smoke.main` sets them before its phases.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    issue_cost(torch, fa, mc)
+    if set(phases) - {"3"}:
+        issue_cost(torch, fa, mc)
     for phase in phases:
-        getattr(smoke, PHASES[phase])(torch)
+        if phase == "3":
+            phase_lp_stage(torch, smoke)
+        else:
+            getattr(smoke, PHASES[phase])(torch)
     return 0
 
 
@@ -121,29 +234,39 @@ def main() -> int:
     ap.add_argument("before", type=Path)
     ap.add_argument("after", type=Path)
     ap.add_argument("--phases", default="6,7,8",
-                    help="chip_smoke.py phases to run, among 6, 7 and 8 (default: all)")
+                    help="phases to run, among 3, 6, 7 and 8 (default: 6,7,8)")
     ap.add_argument("--out", type=Path, default=Path("results/compare_trees"))
     ap.add_argument("--run", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--interleave", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = args.phases.split(",")
-    if not set(phases) <= set(PHASES):
-        ap.error(f"--phases takes a comma-separated list among {sorted(PHASES)}")
+    if not set(phases) <= {"3", *PHASES}:
+        ap.error(f"--phases takes a comma-separated list among {sorted({'3', *PHASES})}")
     if args.run:  # child: `before` is the one checkout to run
         return run_tree(args.before.resolve(), phases)
+    if args.interleave:  # child: both checkouts' LP-terms wrappers in turn
+        import torch
+
+        lp_issue_interleaved(torch, args.before.resolve(), args.after.resolve())
+        return 0
     args.out.mkdir(parents=True, exist_ok=True)
     rc = 0
-    order = [("BEFORE", args.before), ("AFTER", args.after),
-             ("AFTER", args.after), ("BEFORE", args.before)]
-    for n, (name, tree) in enumerate(order):
+    runs = [("BEFORE", [args.before, args.before, "--run"]),
+            ("AFTER", [args.after, args.after, "--run"]),
+            ("AFTER", [args.after, args.after, "--run"]),
+            ("BEFORE", [args.before, args.before, "--run"])]
+    if "3" in phases:
+        runs.append(("INTERLEAVED", [args.before, args.after, "--interleave"]))
+    for n, (name, (first, second, mode)) in enumerate(runs):
         log = args.out / f"{n}_{name}.log"
         t0 = time.perf_counter()
         with log.open("w") as f:
             proc = subprocess.run(
-                [sys.executable, __file__, str(tree.resolve()), str(tree.resolve()),
-                 "--phases", args.phases, "--run"],
+                [sys.executable, __file__, str(first.resolve()), str(second.resolve()),
+                 "--phases", args.phases, mode],
                 stdout=f, stderr=subprocess.STDOUT, timeout=900)
-        print(f"== run {n}: {name} ({tree}), rc {proc.returncode}, "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        print(f"== run {n}: {name} ({first if first == second else f'{first}, {second}'}), "
+              f"rc {proc.returncode}, {time.perf_counter() - t0:.1f} s", flush=True)
         for line in log.read_text().splitlines():
             if any(key in line for key in KEYS):
                 print("   " + line[:400], flush=True)

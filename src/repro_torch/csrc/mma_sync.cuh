@@ -1,7 +1,7 @@
 // Warp-level bf16 tensor-core building blocks for sm_90a, shared by the
-// `mma` routes of flash_attention.cu and mlstm_chunk.cu: asynchronous
-// global -> shared copies, `ldmatrix` fragment loads, `mma.sync.m16n8k16`
-// with f32 accumulation, and the hi + lo split of an f32 operand into two
+// `mma` routes of flash_attention.cu and mlstm_chunk.cu (lp_terms.cu takes
+// the copies only): asynchronous global -> shared copies, `ldmatrix`
+// fragment loads, `mma.sync.m16n8k16` with f32 accumulation, and the hi + lo split of an f32 operand into two
 // bf16 operands.  Fragment layouts are the PTX ISA's for m16n8k16: lane
 // (g = lane / 4, t = lane % 4) holds rows g and g + 8, columns 2 t and
 // 2 t + 1 of each 8-column tile of C; A's registers 0-3 are (rows 0-7,

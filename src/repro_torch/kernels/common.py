@@ -25,7 +25,8 @@ from pathlib import Path
 import torch
 
 __all__ = [
-    "launch", "library", "library_path", "refuse_grad", "stream_of", "BUILD_DIR",
+    "launch", "library", "library_path", "refuse_grad", "sm_count", "stream_of",
+    "BUILD_DIR",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -51,8 +52,9 @@ _SIGNATURES = {
     "pair_resolve": (_P, _P, _P, _I, _I, _P),
     "event_resolve": (_P,) * 11 + (_I,) * 4 + (_P,),
     "port_stats": (_P, _P, _P, _I, _I, _P),
-    "lp_terms_batch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "lp_terms": (_P, _P, _P, _F, _F, _P, _P, _I, _I, _P),
+    "lp_terms_batch": (_P,) * 7 + (_I,) * 7 + (_P,),
+    "lp_terms": (_P, _P, _P, _F, _F, _P, _P) + (_I,) * 6 + (_P,),
+    "lp_terms_smem": (_I,) * 4 + (_P,),
     "flash_attention": (_P,) * 5 + (_I,) * 7 + (_L,) * 12 + (_I, _I, _I, _F) + (_I,) * 4 + (_P,),
     "mlstm_chunk": (_P,) * 11 + (_I,) * 6 + (_P,),
     "mlstm_chunk_smem": (_I, _I, _I, _P, _P),
@@ -61,6 +63,7 @@ _SIGNATURES = {
 }
 
 _LIB: ctypes.CDLL | None = None
+_SM_COUNTS: dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -135,6 +138,15 @@ def library() -> ctypes.CDLL:
 def stream_of(t: torch.Tensor) -> int:
     """Raw handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sm_count(device: torch.device) -> int:
+    """SMs of CUDA device ``device`` (cached per device: the wrappers' plans
+    read it on every call)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _SM_COUNTS:
+        _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNTS[index]
 
 
 def refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:

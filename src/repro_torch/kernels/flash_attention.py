@@ -48,7 +48,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.kernels.common import launch, refuse_grad, stream_of
+from repro_torch.kernels.common import launch, refuse_grad, sm_count, stream_of
 
 __all__ = [
     "flash_attention", "flash_attention_plain", "live_band", "plan", "Plan",
@@ -69,7 +69,6 @@ _HEAD_DIMS = (16, 32, 64, 128, 256)
 NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTE_CODES = {"simt": 0, "mma": 1, "split": 2}
-_SM_COUNTS: dict[int, int] = {}
 
 
 @dataclass(frozen=True)
@@ -105,13 +104,6 @@ def plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, Sq: int, Skv: int,
         per_run = -(-tiles // min(want, tiles))
         return Plan("split", -(-tiles // per_run), lo, per_run * SPLIT_KEYS)
     return Plan("mma" if dtype == torch.bfloat16 else "simt")
-
-
-def _sm_count(device: torch.device) -> int:
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _SM_COUNTS:
-        _SM_COUNTS[index] = torch.cuda.get_device_properties(index).multi_processor_count
-    return _SM_COUNTS[index]
 
 
 def flash_attention_plain(
@@ -233,7 +225,7 @@ def _forward(q, k, v, causal, window, q_offset) -> torch.Tensor:
     if B * Hq * Sq == 0:
         return out
     ops = [_operand(t, name) for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out"))]
-    p = plan(q.dtype, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, _sm_count(q.device))
+    p = plan(q.dtype, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, sm_count(q.device))
     scratch = None  # held until the launch is queued
     if p.route == "split":  # (m, l, acc[D]) in f32 per run and row
         scratch = torch.empty(

@@ -214,6 +214,60 @@ def test_lp_terms_batch_kernel_matches_plain(cuda, B, M, P):
         assert bool((a - b).abs().le(lt.rtol(M) * b.abs()).all())
 
 
+# --------------------------------------------------------------- lp_terms plan
+# Shapes and SM counts the plan is swept over: the main path's, the whole
+# trace's, and the chunk and port-tile edges.
+_PLAN_SWEEP = [
+    (B, M, P, sms)
+    for B in (1, 3, 32)
+    for M in (1, 31, 32, 33, 65, 100, 104, 128, 129, 526)
+    for P in (1, 7, 8, 9, 20, 24, 64, 65, 129, 300)
+    for sms in (1, 66, 132)
+]
+_SMEM_LIMIT = 232_448  # an H100 block's opt-in shared memory
+
+
+@pytest.mark.parametrize("M", [1, 31, 32, 33, 65, 100, 104, 128, 129, 526])
+def test_lp_terms_plan_covers_outputs_and_chunks(M):
+    """Every (b, m, p) output in exactly one block, and within a block in
+    exactly one thread of each chunk group; every q in exactly one chunk,
+    added in order, each chunk inside its round's stage; threads and shared
+    memory within the kernel's limits."""
+    for B, _, P, sms in (c for c in _PLAN_SWEEP if c[1] == M):
+        p = lt.plan(B, M, P, sms)
+        nb, nm, np_ = p.grid
+        assert nb == B
+        # Blocks cut m and p into disjoint ranges that cover them.
+        assert (nm - 1) * p.rows < M <= nm * p.rows
+        assert (np_ - 1) * p.ports < P <= np_ * p.ports
+        assert p.split == (np_ > 1) == (P > lt.WHOLE_PORTS)
+        assert p.ports % 4 == 0 and p.rows % p.rows_per_thread == 0
+        assert p.ports == (lt.SPLIT_PORTS if p.split else -(-P // 4) * 4)
+        # A group's threads tile the block's rows x ports once.
+        assert p.threads == p.groups * (p.rows // p.rows_per_thread) * (p.ports // 4)
+        assert p.threads <= 512 and p.smem <= _SMEM_LIMIT
+        # Chunk c of 32 q runs in group c % groups of round c // groups:
+        # the rounds take every chunk, round 0 keeps every group busy, and
+        # a round's q rows fit its stage (the whole extent in one round).
+        chunks = -(-M // lt.CHUNK)
+        assert 1 <= p.groups <= min(4, chunks)
+        assert (p.rounds - 1) * p.groups < chunks <= p.rounds * p.groups
+        assert p.stage_rows == (M if p.rounds == 1 else p.groups * lt.CHUNK)
+
+
+@pytest.mark.parametrize("B,M,P,min_blocks", [
+    (1, 526, 300, 132),  # the whole trace fills the card
+    (1, 100, 20, 5),  # one paper instance: more than the old 4 blocks
+    (32, 104, 24, 66),  # the paper bucket: one block per (member, 32 rows)
+])
+def test_lp_terms_plan_fills_the_card(B, M, P, min_blocks):
+    p = lt.plan(B, M, P, 132)
+    assert p.grid[0] * p.grid[1] * p.grid[2] >= min_blocks
+    assert p.smem <= _SMEM_LIMIT
+    # The main path's shapes keep every port in one block: one launch, no fill.
+    assert p.split == (P > lt.WHOLE_PORTS)
+
+
 # -------------------------------------------------------------------- lp_terms
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,P", [(100, 20), (37, 6), (526, 300), (1, 1), (33, 129)])
@@ -232,6 +286,93 @@ def test_lp_terms_kernel_matches_plain_and_batch(cuda, M, P):
     batch = lt.lp_terms_batch(X, rho, tau, inv_R, dok)
     for a, b in zip(got, batch):
         assert torch.equal(a, b[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 7, 8, 9, 24, 129, 300])
+@pytest.mark.parametrize("M", [1, 31, 32, 33, 65, 526])
+def test_lp_terms_kernels_at_chunk_and_tile_edges(cuda, M, P):
+    """Both kernels within rtol(M) of their twins across chunk, row-tile
+    and port-tile edges (split p past 64 ports included); the single
+    kernel bit-identical to the batch's member; a call repeats its bits."""
+    X, rho, tau, inv_R, dok = (torch.from_numpy(a).to(cuda) for a in _lp_inputs(3, M, P, M + P))
+    got = lt.lp_terms_batch(X, rho, tau, inv_R, dok)
+    again = lt.lp_terms_batch(X, rho, tau, inv_R, dok)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, lt.lp_terms_batch_plain(X, rho, tau, inv_R, dok), again):
+        assert bool((a - b).abs().le(lt.rtol(M) * b.abs()).all())
+        assert torch.equal(a, c)
+    args = (X[1], rho[1], tau[1], float(inv_R[1]), float(dok[1]))
+    single = lt.lp_terms(*args)
+    for a, b, c in zip(single, lt.lp_terms_plain(*args), got):
+        assert bool((a - b).abs().le(lt.rtol(M) * b.abs()).all())
+        assert torch.equal(a, c[1])
+
+
+@pytest.mark.cuda
+def test_lp_terms_kernel_refuses_tiles_it_cannot_run(cuda):
+    """A tiling with more chunk groups than chunks, a port tile that
+    misses ports, or rows the kernel has no instance for is refused before
+    launch."""
+    import dataclasses
+
+    X, rho, tau = (torch.from_numpy(a).to(cuda) for a in _lp_inputs(1, 40, 24, 0)[:3])
+    p = lt.plan(1, 40, 24, 132)
+    for bad in (dict(groups=3), dict(ports=16), dict(rows=12)):
+        with pytest.raises(RuntimeError, match="lp_terms failed to launch"):
+            lt.lp_terms(X[0], rho[0], tau[0], 1.0, 1.0, tiling=dataclasses.replace(p, **bad))
+
+
+@pytest.mark.cuda
+def test_lp_terms_plan_smem_is_the_sources(cuda):
+    """`Plan.smem` is the shared memory the C entry derives from the same
+    tiles, across the plan sweep."""
+    import ctypes
+
+    from repro_torch.kernels.common import launch
+
+    for B, M, P, sms in _PLAN_SWEEP:
+        p = lt.plan(B, M, P, sms)
+        got = ctypes.c_longlong(0)
+        launch("lp_terms_smem", M, p.rows, p.ports, p.groups, ctypes.byref(got))
+        assert got.value == p.smem, (B, M, P, sms)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,P", [(31, 9), (65, 24), (104, 24), (129, 20), (526, 300)])
+def test_lp_terms_bits_depend_on_m_alone(cuda, M, P):
+    """Every tiling the kernel takes -- rows a block, rows a thread, chunk
+    groups -- gives the same bits, in a batch of 3 and for one instance:
+    the association of each sum depends on M alone."""
+    X, rho, tau, inv_R, dok = (torch.from_numpy(a).to(cuda) for a in _lp_inputs(3, M, P, 7))
+    want = lt.lp_terms_batch(X, rho, tau, inv_R, dok)
+    seen = set()
+    for rows in (32, 16, 8):
+        for tm in (2, 1):
+            for groups in (1, 2, 3, 4):
+                p = lt.tiles(3, M, P, rows, tm, groups)
+                if p.threads > 512 or (rows, tm, p.groups) in seen:
+                    continue
+                seen.add((rows, tm, p.groups))
+                got = lt.lp_terms_batch(X, rho, tau, inv_R, dok, tiling=p)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), p
+                one = lt.lp_terms(X[2], rho[2], tau[2], float(inv_R[2]), float(dok[2]),
+                                  tiling=p)
+                assert torch.equal(one[0], want[0][2]) and torch.equal(one[1], want[1][2]), p
+    assert len({groups for _, _, groups in seen}) == min(4, -(-M // lt.CHUNK))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,P", [(104, 24), (64, 300)])
+def test_lp_terms_batch_members_bit_identical_to_single(cuda, M, P):
+    """Member b of a B = 32 batch equals `lp_terms` on member b alone, bit
+    for bit (the plans differ; the association depends on M alone)."""
+    X, rho, tau, inv_R, dok = (torch.from_numpy(a).to(cuda) for a in _lp_inputs(32, M, P, 5))
+    assert lt.plan(32, M, P, 132) != lt.plan(1, M, P, 132)
+    load, rec = lt.lp_terms_batch(X, rho, tau, inv_R, dok)
+    for b in range(32):
+        one = lt.lp_terms(X[b], rho[b], tau[b], float(inv_R[b]), float(dok[b]))
+        assert torch.equal(one[0], load[b]) and torch.equal(one[1], rec[b])
 
 
 # ------------------------------------------------------------- flash_attention
