@@ -8,19 +8,27 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
 1. the card's name and power limit, and the kernels' build time;
 2. every kernel against its plain PyTorch twin on the card, at the main
    path's shapes and at the widths of the whole trace (`pair_resolve` at
-   152 ports, both LP-terms kernels at 300 flat ports), with its time
+   48 and 152 ports, both LP-terms kernels at 300 flat ports), with its time
    (CUDA events, median of 30 runs after warm-up), the twin's, one library
    call's where one computes the same function, the least time the card
    could take (`bound_ms`) and the profiler's device-only time, the
    library call's beside it (all its kernels); each LP-terms shape logs
    the tiles `lp_terms.plan` picked (grid, tiles, split p), and the
-   ``kernels`` line carries the main path's as ``plan``.
+   ``kernels`` line carries the main path's as ``plan``.  The calendar
+   round kernels log the route their `plan` picked at each shape (the
+   ``kernels`` line carries the main path's) and are held under the plan
+   and under every other tiling (`tilings`: each route of the kernel).
    `event_resolve` is held against its twin once phases 3 and 5 have given
    it real calendar states: mask for mask (start, first claimers, blocked)
    under both disciplines, on every round of a flow calendar run on the
    main path's bucket (G = 96, Nmax = 12), on 64 rounds at the fig5 width
    (N = 32) and 3 rounds of the whole trace's one member (F = 266,260,
-   N = 152), and on a random state of each shape;
+   N = 152), and on a random state of each shape.  Then the calendars run
+   on the whole trace's member at 152 ports: `pair_resolve` held mask for
+   mask on 32 real pair-calendar rounds of each discipline (the pair
+   calendar's int32 keys take the trace's first 91,368 flows), and a
+   profiled window of 20 rounds of each engine's calendar logs the resolve
+   kernel's share of the device time;
 3. the main path end to end on the paper's default setting (Sec. V-A:
    N=10, M=100, K=3, rates 10/20/30, delta=8, zero releases), 32 seeds:
    `solve_ensemble_lp` (3000 iterations), then
@@ -337,6 +345,31 @@ def single_lp_args(torch, inst, seed):
     )
 
 
+def check_pair_tilings(torch, pr, claim, idle, want, label):
+    """`pair_resolve` under its plan and every other tiling equal to
+    ``want`` (the twin's); returns the routes held, as text."""
+    routes = []
+    for p in [None] + pr.tilings(*claim.shape[:2]):
+        got = pr.pair_resolve(claim, idle, plan=p)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"pair_resolve {label} plan {p} != plain")
+        if p is not None:
+            routes.append(f"{p.route} {p.per_block or p.cluster}")
+    return "plan, " + ", ".join(routes)
+
+
+def check_event_tilings(torch, er, args, discipline, want, label):
+    """`event_resolve` under every tiling but its plan equal to ``want``
+    (the twin's: start, first claimers, blocked); returns how many."""
+    plans = er.tilings(*args[0].shape, args[3].shape[1])
+    for p in plans:
+        got = er.event_resolve(*args, discipline, plan=p)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"event_resolve {label} {discipline} plan {p} != plain")
+    return len(plans)
+
+
 def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays,
                   wide_lp_arrays, single_insts):
     from repro_torch.core.lp import _precedence_X
@@ -349,15 +382,17 @@ def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays,
     gen = torch.Generator().manual_seed(0)
     rows = []
 
-    # pair_resolve: exact, up to the widened 152 ports (150 + the quantum).
+    # pair_resolve: exact on every route (the plan's and every other
+    # tiling), up to the widened 152 ports (150 + the quantum); timed at
+    # the wide shapes, then the main path's.
+    sms = sm_count(dev)
     for G, N in ((96, 12), (8, 48), (8, 152)):
         claim, idle = random_claims(torch, G, N, gen, dev)
-        got = pr.pair_resolve(claim, idle)
-        torch.cuda.synchronize()
         want = pr.pair_resolve_plain(claim, idle)
-        check(torch.equal(got, want), f"pair_resolve ({G},{N},{N}) != plain")
-        log(f"pair_resolve ({G},{N},{N}): exact match, {int(want.sum())} starts")
-        if N == 152:
+        routes = check_pair_tilings(torch, pr, claim, idle, want, f"({G},{N},{N})")
+        log(f"pair_resolve ({G},{N},{N}): exact match on {routes}, {int(want.sum())} starts; "
+            f"plan {json.dumps(dataclasses.asdict(pr.plan(G, N, sms)))}")
+        if N > 12:
             timed_call(
                 torch, f"pair_resolve ({G},{N},{N})", "pair_resolve",
                 lambda: pr.pair_resolve(claim, idle),
@@ -379,6 +414,7 @@ def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays,
             lambda: pr.pair_resolve_plain(claim, idle), None,
             G * N * N * (4 + 1 + 1), G * N * N * 5, F32_OPS_PER_S,
         ),
+        extra=dict(plan=dataclasses.asdict(pr.plan(G, N, sms))),
     ))
 
     # port_stats: f64 sums in NumPy's order, so exact (0 ulp); tau exact.
@@ -435,7 +471,6 @@ def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays,
             got, lt.lp_terms_batch_plain(*args), M, lt.rtol(M),
         ))
         batch_args[label] = args
-    sms = sm_count(dev)
     for label in ("wide bucket", "paper bucket"):  # the main path's last
         args = batch_args[label]
         B, M, P = args[1].shape
@@ -803,8 +838,89 @@ def whole_trace_table(inst):
     m, i, j = np.nonzero(inst.demands)
     o = np.argsort(inst.releases[m], kind="stable")
     m, i, j = m[o], i[o], j[o]
-    return dict(src=i, dst=j, rel=inst.releases[m],
+    return dict(src=i, dst=j, rel=inst.releases[m], coflow=m,
                 dur=inst.delta + inst.demands[m, i, j] / inst.rates[0])
+
+
+#: Rounds of the pair calendar on the trace held mask for mask (the first
+#: 16 and 16 from round 256, when more coflows are out), and the rounds of
+#: each engine's calendar in a profiled window (after 256).
+TRACE_HELD_ROUNDS = (range(16), range(256, 272))
+TRACE_WINDOW = range(256, 276)
+
+
+def pair_calendar_prefix(table, n_ports):
+    """The first coflows (release order) of a member table that the pair
+    calendar takes at ``n_ports``: its int32 segment keys need (P + 1)
+    (Fmax + 1) < 2**31 with P the padded ports squared, so at 152 ports
+    at most 92,928 flows (the whole trace has 266,260)."""
+    from repro_torch.pipeline import batch_circuit as bc
+
+    P = bc._round_up(n_ports, bc._N_QUANTUM) ** 2
+    limit = ((2**31 - 1) // (P + 1) - 1) // bc._F_QUANTUM * bc._F_QUANTUM
+    ends = np.flatnonzero(np.diff(table["coflow"]) != 0) + 1  # coflow boundaries
+    k = int(ends[ends <= limit].max()) if table["coflow"].shape[0] > limit else None
+    return {key: v[:k] for key, v in table.items()}
+
+
+def phase_trace_calendars(torch, inst):
+    """The whole trace's member on the calendars themselves: `pair_resolve`
+    held mask for mask (plan and every tiling) on the `TRACE_HELD_ROUNDS`
+    of each discipline's pair calendar at 152 ports, on the longest prefix
+    the pair calendar takes; then a profiled window of `TRACE_WINDOW`
+    greedy rounds of each engine's calendar, logging the resolve kernel's
+    share of the window's device time (the flow engine on the prefix and
+    on the whole member)."""
+    from repro_torch.kernels import pair_resolve as pr
+    from repro_torch.pipeline import batch_circuit as bc
+
+    dev = torch.device("cuda")
+    whole = whole_trace_table(inst)
+    prefix = pair_calendar_prefix(whole, inst.num_ports)
+    pads = {"prefix": bc._pad_members([prefix], inst.num_ports),
+            "whole": bc._pad_members([whole], inst.num_ports)}
+    pad = pads["prefix"]
+    G, F, N = pad["G"], pad["Fmax"], pad["Nmax"]
+    label = f"trace prefix ({prefix['src'].shape[0]} of {whole['src'].shape[0]} flows)"
+    kernel = bc.pair_resolve
+    for d in ("greedy", "reserving"):
+        cal = bc._PairCalendar(pad, d == "reserving", dev)
+        held = []
+
+        def checking(claim, idle):
+            want = pr.pair_resolve_plain(claim, idle)
+            check_pair_tilings(torch, pr, claim, idle, want, f"{label} {d} round {len(held)}")
+            held.append(int(want.sum()))
+            return kernel(claim, idle)
+
+        held_rounds = {r for rounds in TRACE_HELD_ROUNDS for r in rounds}
+        try:
+            for r in range(max(held_rounds) + 1):
+                bc.pair_resolve = checking if r in held_rounds else kernel
+                cal.round()
+        finally:
+            bc.pair_resolve = kernel
+        check(len(held) == len(held_rounds), f"{label}: {len(held)} pair rounds held")
+        log(f"pair_resolve on the pair calendar, {label}, (G={G}, N={N}) {d}: exact match "
+            f"(plan and every tiling) on {len(held)} rounds, "
+            f"{', '.join(f'{r.start}-{r.stop - 1}' for r in TRACE_HELD_ROUNDS)} "
+            f"({sum(held)} starts)")
+    for engine, which in (("kernel", "prefix"), ("jax", "prefix"), ("jax", "whole")):
+        cal = bc._CALENDARS[engine](pads[which], False, dev)
+        name = "pair_resolve" if engine == "kernel" else "event_resolve"
+        for _ in range(TRACE_WINDOW.start):
+            cal.round()
+        wall, kernels = profile_device(
+            torch, lambda: [cal.round() for _ in TRACE_WINDOW])
+        busy = sum(us for us, _ in kernels.values())
+        mine = [(us, n) for key, (us, n) in kernels.items() if f"{name}_kernel" in key]
+        us, n = sum(u for u, _ in mine), sum(c for _, c in mine)
+        log(f"calendar window, engine {engine!r}, trace {which} (G={G}, "
+            f"Fmax={pads[which]['Fmax']}, N={N}), greedy rounds {TRACE_WINDOW.start}-"
+            f"{TRACE_WINDOW.stop - 1}: wall "
+            f"{wall * 1e3:.3f} ms, device busy {busy:.1f} us over "
+            f"{sum(c for _, c in kernels.values())} kernels; {name} {us:.1f} us over {n} "
+            f"recorded launches ({100 * us / busy if busy else float('nan'):.1f} % of busy)")
 
 
 def random_event_state(torch, gen, G, F, N, dev):
@@ -826,17 +942,20 @@ def phase_event_kernel(torch, shapes):
     ports, rounds to check)) and on random states of the same shape; then
     timed at each, the main path's bucket last."""
     from repro_torch.kernels import event_resolve as er
+    from repro_torch.kernels.common import sm_count
     from repro_torch.pipeline import batch_circuit as bc
 
     dev = torch.device("cuda")
+    sms = sm_count(dev)
     gen = torch.Generator().manual_seed(17)
     states = {}
     for label, (tabs, n_ports, max_rounds) in shapes.items():
         pad = bc._pad_members(tabs, n_ports)
         G, F, N = pad["G"], pad["Fmax"], pad["Nmax"]
+        plan = er.plan(G, F, N, sms)
         for d in ("greedy", "reserving"):
             cal = bc._FlowCalendar(pad, d == "reserving", dev)
-            checked = starts = 0
+            checked = starts = tilings = 0
             while checked < max_rounds and cal.live():
                 args = cal.flow_args()
                 if checked == 0 and d == "greedy":
@@ -846,6 +965,8 @@ def phase_event_kernel(torch, shapes):
                 want = er.event_resolve_plain(*args, d)
                 check(all(torch.equal(a, b) for a, b in zip(got, want)),
                       f"event_resolve {label} ({G},{F},{N}) {d} round {checked} != plain")
+                if checked == 0:  # every other route on the first round's state
+                    tilings = check_event_tilings(torch, er, args, d, want, label)
                 starts += int(want[0].sum())
                 checked += 1
                 cal.round()
@@ -855,9 +976,12 @@ def phase_event_kernel(torch, shapes):
             want = er.event_resolve_plain(*rand, d)
             check(all(torch.equal(a, b) for a, b in zip(got, want)),
                   f"event_resolve {label} ({G},{F},{N}) {d} random state != plain")
+            check_event_tilings(torch, er, rand, d, want, f"{label} random state")
             log(f"event_resolve {label} (G={G}, Fmax={F}, Nmax={N}) {d}: exact match "
                 f"(start, first claimers, blocked) on {checked} calendar rounds "
-                f"({starts} starts) and one random state ({int(want[0].sum())} starts)")
+                f"({starts} starts) and one random state ({int(want[0].sum())} starts) "
+                f"under the plan, and under {tilings} tilings on round 0 and the random "
+                f"state; plan {json.dumps(dataclasses.asdict(plan))}")
     t = None
     for label, (args, G, F, N) in reversed(list(states.items())):
         # What this state needs, padding included: the pending byte in and
@@ -894,7 +1018,7 @@ def phase_event_kernel(torch, shapes):
         name="event_resolve", route="cuda",
         source="src/repro_torch/csrc/event_resolve.cu",
         replaces="src/repro/kernels/event_resolve/kernel.py:89",
-        max_abs_err=0.0, **t,
+        max_abs_err=0.0, **t, extra=dict(plan=dataclasses.asdict(er.plan(G, F, N, sms))),
     )
 
 
@@ -1919,6 +2043,10 @@ def main() -> int:
         "fig5 N=32": (schedule_tables([flow_runs[fig5[0]]]), fig5[1].num_ports, 64),
         "fb_full": ([whole_trace_table(fb_full)], fb_full.num_ports, 3),
     }))
+
+    # Phase 2, the calendars on the whole trace: `pair_resolve` on real
+    # pair-calendar rounds at 152 ports, and each engine's resolve share.
+    phase_trace_calendars(torch, fb_full)
 
     # Phase 6: serving gemma3-1b at full width.
     serve_counts = phase_serving(torch)

@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
-"""The LP stage of the paper-default ensemble, serving gemma3-1b and
-xlstm-1.3b and training gemma3-1b at full width: two checkouts of the repo
-side by side on one NVIDIA GPU.
+"""The calendar round kernels' host cost, the LP stage of the
+paper-default ensemble, serving gemma3-1b and xlstm-1.3b and training
+gemma3-1b at full width: two checkouts of the repo side by side on one
+NVIDIA GPU.
 
-    python3 scripts/compare_trees.py BEFORE AFTER [--phases 3,6,7,8] [--out DIR]
+    python3 scripts/compare_trees.py BEFORE AFTER [--phases 2,3,6,7,8] [--out DIR]
 
 Runs each checkout in a fresh process, in the order BEFORE, AFTER, AFTER,
 BEFORE, so that a drift of the host's clock over the call shows as a gap
 between the two runs of one checkout.  Each run builds that checkout's
 kernels, then runs the phases picked among:
 
+* 2, the calendar rounds: the host's cost of issuing one `pair_resolve`
+  call at the main path's shape (G = 96, N = 12) and one `event_resolve`
+  call at its bucket's (G = 96, F = 336, N = 12; greedy).  After the four
+  runs a fifth process loads both checkouts' wrappers and times the two
+  calls through each in turn, as for phase 3;
 * 3, the LP stage: the host's cost of issuing one `lp_terms` call at one
   paper instance's shape (M = 100, P = 20) and one `lp_terms_batch` call
   at the paper bucket's (B = 32, M = 104, P = 24), then the checkout's own
@@ -28,7 +34,8 @@ kernels, then runs the phases picked among:
   the 512 window) and one `mlstm_chunk` call at xlstm-1.3b's (4 slots x 4
   heads, one position, Dh 512, bf16, a carried state).
 
-``--phases`` picks them (default: 6, 7 and 8).  Each run's log lands in
+``--phases`` picks them (default: 6, 7 and 8; 2 and 3 each add the fifth,
+interleaved process).  Each run's log lands in
 DIR/<n>_<BEFORE|AFTER>.log (default ``results/compare_trees``); the lines
 that carry the end-to-end numbers are printed run by run.  Exits non-zero
 if any run fails.
@@ -127,32 +134,60 @@ def lp_issue_cost(torch) -> None:
         print(f"issue: of which plan() {us:.2f} us", flush=True)
 
 
-def load_lp_terms(tree: Path):
-    """Checkout ``tree``'s `repro_torch.kernels.lp_terms`, its kernels built
-    and loaded.  Its modules leave `sys.modules` once imported (they keep
-    their own references), so the next call imports the next checkout's."""
+def resolve_operands(torch):
+    """Random operands on the card at the main path's shapes: (96, 12, 12)
+    claims and idle flags; a (96, 336) flow bucket on 12 ports."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    G, N, F = 96, 12, 336
+    claim = torch.randint(0, N * N + 1, (G, N, N), generator=gen, device="cuda",
+                          dtype=torch.int32)
+    idle = torch.rand((G, N, N), generator=gen, device="cuda") < 0.6
+
+    def f64(*shape):
+        return 10.0 * torch.rand(shape, generator=gen, device="cuda", dtype=torch.float64)
+
+    ports = [torch.randint(0, N, (G, F), generator=gen, device="cuda", dtype=torch.int32)
+             for _ in range(2)]
+    flows = (*ports, f64(G, F), f64(G, N), f64(G, N),
+             torch.rand((G, F), generator=gen, device="cuda") < 0.7, f64(G))
+    return (claim, idle), flows
+
+
+def resolve_issue_cost(torch) -> None:
+    """Host cost of issuing one call of each calendar round kernel at the
+    main path's shapes."""
+    from repro_torch.kernels import event_resolve as er
+    from repro_torch.kernels import pair_resolve as pr
+
+    pair, flows = resolve_operands(torch)
+    us = per_call_us(torch, lambda: pr.pair_resolve(*pair))
+    print(f"issue: pair_resolve (96, 12, 12): {us:.2f} us of host time per call", flush=True)
+    us = per_call_us(torch, lambda: er.event_resolve(*flows, "greedy"))
+    print(f"issue: event_resolve (96, 336, 12): {us:.2f} us of host time per call", flush=True)
+
+
+def load_kernels(tree: Path, names: tuple[str, ...]) -> list:
+    """Checkout ``tree``'s `repro_torch.kernels.<name>` modules, its kernels
+    built and loaded.  Its modules leave `sys.modules` once imported (they
+    keep their own references), so the next call imports the next
+    checkout's."""
     import importlib
 
     src = str(tree / "src")
     sys.path.insert(0, src)
     try:
-        lt = importlib.import_module("repro_torch.kernels.lp_terms")
+        mods = [importlib.import_module(f"repro_torch.kernels.{n}") for n in names]
         importlib.import_module("repro_torch.kernels.common").library()
     finally:
         sys.path.remove(src)
         for name in [n for n in sys.modules if n.split(".")[0] == "repro_torch"]:
             del sys.modules[name]
-    return lt
+    return mods
 
 
-def lp_issue_interleaved(torch, before: Path, after: Path, rounds: int = 50,
-                         calls: int = 200) -> None:
-    """Host microseconds per call of `lp_terms` (M = 100, P = 20) and
-    `lp_terms_batch` (B = 32, M = 104, P = 24) through both checkouts'
-    wrappers in this one process, timed in turn (module doc): each tree's
-    median over its 2 ``rounds`` batches of ``calls`` calls, and the
-    median and quartiles of the per-round difference AFTER - BEFORE."""
-    trees = {"BEFORE": load_lp_terms(before), "AFTER": load_lp_terms(after)}
+def lp_calls(torch, before: Path, after: Path) -> dict:
+    """(tree, kind) -> one `lp_terms` (M = 100, P = 20) or `lp_terms_batch`
+    (B = 32, M = 104, P = 24) call through that checkout's wrapper."""
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def rand(*shape):
@@ -160,9 +195,40 @@ def lp_issue_interleaved(torch, before: Path, after: Path, rounds: int = 50,
 
     single = (rand(100, 100), rand(100, 20), rand(100, 20), 0.05, 2.5)
     batch = (rand(32, 104, 104), rand(32, 104, 24), rand(32, 104, 24), rand(32), rand(32))
-    fns = {(name, kind): (lambda lt=lt: lt.lp_terms(*single)) if kind == "lp_terms"
-           else (lambda lt=lt: lt.lp_terms_batch(*batch))
-           for name, lt in trees.items() for kind in ("lp_terms", "lp_terms_batch")}
+    fns = {}
+    for name, tree in (("BEFORE", before), ("AFTER", after)):
+        (lt,) = load_kernels(tree, ("lp_terms",))
+        fns[name, "lp_terms"] = lambda lt=lt: lt.lp_terms(*single)
+        fns[name, "lp_terms_batch"] = lambda lt=lt: lt.lp_terms_batch(*batch)
+    return fns
+
+
+def resolve_calls(torch, before: Path, after: Path) -> dict:
+    """(tree, kind) -> one `pair_resolve` or `event_resolve` call at the
+    main path's shapes (`resolve_operands`) through that checkout's
+    wrapper."""
+    pair, flows = resolve_operands(torch)
+    fns = {}
+    for name, tree in (("BEFORE", before), ("AFTER", after)):
+        pr, er = load_kernels(tree, ("pair_resolve", "event_resolve"))
+        fns[name, "pair_resolve"] = lambda pr=pr: pr.pair_resolve(*pair)
+        fns[name, "event_resolve"] = lambda er=er: er.event_resolve(*flows, "greedy")
+    return fns
+
+
+#: The calls each phase times through both checkouts in turn.
+INTERLEAVED = {"2": resolve_calls, "3": lp_calls}
+
+
+def issue_interleaved(torch, before: Path, after: Path, phase: str, rounds: int = 50,
+                      calls: int = 200) -> None:
+    """Host microseconds per call of phase ``phase``'s calls through both
+    checkouts' wrappers in this one process, timed in turn (module doc):
+    each tree's median over its 2 ``rounds`` batches of ``calls`` calls,
+    and the median and quartiles of the per-round difference AFTER -
+    BEFORE."""
+    fns = INTERLEAVED[phase](torch, before, after)
+    kinds = list(dict.fromkeys(kind for _, kind in fns))
     with torch.inference_mode():
         for fn in fns.values():  # warm: first launches, plan caches
             fn()
@@ -170,14 +236,14 @@ def lp_issue_interleaved(torch, before: Path, after: Path, rounds: int = 50,
         samples = {key: [] for key in fns}
         for _ in range(rounds):
             for name in ("BEFORE", "AFTER", "AFTER", "BEFORE"):
-                for kind in ("lp_terms", "lp_terms_batch"):
+                for kind in kinds:
                     fn = fns[name, kind]
                     t0 = time.perf_counter()
                     for _ in range(calls):
                         fn()
                     samples[name, kind].append((time.perf_counter() - t0) / calls * 1e6)
                     torch.cuda.synchronize()
-    for kind in ("lp_terms", "lp_terms_batch"):
+    for kind in kinds:
         b, a = samples["BEFORE", kind], samples["AFTER", kind]
         # Round r's two BEFORE and two AFTER batches.
         diff = [(a[2 * r] + a[2 * r + 1] - b[2 * r] - b[2 * r + 1]) / 2 for r in range(rounds)]
@@ -219,10 +285,12 @@ def run_tree(tree: Path, phases: list[str]) -> int:
     # As `chip_smoke.main` sets them before its phases.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if set(phases) - {"3"}:
+    if set(phases) - set(INTERLEAVED):
         issue_cost(torch, fa, mc)
     for phase in phases:
-        if phase == "3":
+        if phase == "2":
+            resolve_issue_cost(torch)
+        elif phase == "3":
             phase_lp_stage(torch, smoke)
         else:
             getattr(smoke, PHASES[phase])(torch)
@@ -234,20 +302,23 @@ def main() -> int:
     ap.add_argument("before", type=Path)
     ap.add_argument("after", type=Path)
     ap.add_argument("--phases", default="6,7,8",
-                    help="phases to run, among 3, 6, 7 and 8 (default: 6,7,8)")
+                    help="phases to run, among 2, 3, 6, 7 and 8 (default: 6,7,8)")
     ap.add_argument("--out", type=Path, default=Path("results/compare_trees"))
     ap.add_argument("--run", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--interleave", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     phases = args.phases.split(",")
-    if not set(phases) <= {"3", *PHASES}:
-        ap.error(f"--phases takes a comma-separated list among {sorted({'3', *PHASES})}")
+    if not set(phases) <= {*INTERLEAVED, *PHASES}:
+        ap.error(f"--phases takes a comma-separated list among "
+                 f"{sorted({*INTERLEAVED, *PHASES})}")
     if args.run:  # child: `before` is the one checkout to run
         return run_tree(args.before.resolve(), phases)
-    if args.interleave:  # child: both checkouts' LP-terms wrappers in turn
+    if args.interleave:  # child: both checkouts' wrappers in turn
         import torch
 
-        lp_issue_interleaved(torch, args.before.resolve(), args.after.resolve())
+        for phase in phases:
+            if phase in INTERLEAVED:
+                issue_interleaved(torch, args.before.resolve(), args.after.resolve(), phase)
         return 0
     args.out.mkdir(parents=True, exist_ok=True)
     rc = 0
@@ -255,7 +326,7 @@ def main() -> int:
             ("AFTER", [args.after, args.after, "--run"]),
             ("AFTER", [args.after, args.after, "--run"]),
             ("BEFORE", [args.before, args.before, "--run"])]
-    if "3" in phases:
+    if set(phases) & set(INTERLEAVED):
         runs.append(("INTERLEAVED", [args.before, args.after, "--interleave"]))
     for n, (name, (first, second, mode)) in enumerate(runs):
         log = args.out / f"{n}_{name}.log"

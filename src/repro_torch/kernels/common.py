@@ -37,7 +37,7 @@ _SOURCES = (
     "flash_attention.cu", "mlstm_chunk.cu", "quant.cu",
 )
 # Headers the sources include: they enter the digest, not the compile line.
-_HEADERS = ("mma_sync.cuh",)
+_HEADERS = ("mma_sync.cuh", "launch.cuh")
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -49,8 +49,10 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 #: C signature (argument types) of each entry point; all return int.
 _SIGNATURES = {
-    "pair_resolve": (_P, _P, _P, _I, _I, _P),
-    "event_resolve": (_P,) * 11 + (_I,) * 4 + (_P,),
+    "pair_resolve": (_P, _P, _P) + (_I,) * 3 + (_P,),
+    "pair_resolve_dims": (_I,) * 3 + (_P,),
+    "event_resolve": (_P,) * 11 + (_I,) * 4 + (_L, _P),
+    "event_resolve_dims": (_I,) * 3 + (_L, _P),
     "port_stats": (_P, _P, _P, _I, _I, _P),
     "lp_terms_batch": (_P,) * 7 + (_I,) * 7 + (_P,),
     "lp_terms": (_P, _P, _P, _F, _F, _P, _P) + (_I,) * 6 + (_P,),

@@ -8,7 +8,9 @@
   f64 inputs whose structure lies below f32's resolution, both
   disciplines; its first claimers against `np.minimum.at`.
 * Greedy equals the reference's reserving round with ``pending := idle``.
-* The kernel against the twin on the card (marked ``cuda``; skips here).
+* `plan`: the route by shape, every flow in exactly one block (CPU).
+* The kernel against the twin on the card on every route (marked
+  ``cuda``; skips here).
 
 Tolerance everywhere: none (boolean masks and integer ids).
 """
@@ -204,23 +206,133 @@ def test_unknown_discipline_raises():
         er.event_resolve(**_port(_state(1, 2, 9, 3)), discipline="fifo")
 
 
+# (G, F, N): the main path, fig5, the whole trace, and either side of the
+# route switch (`BLOCK_FLOWS`), of the 4-flow vector loads (F % 4) and of a
+# cluster block's range; F = 0; one member.
+_PLAN_CASES = [(96, 336, 12), (8, 1520, 32), (8, 266_272, 152), (1, 266_260, 152),
+               (2, 0, 4), (1, 1, 1), (1, er.BLOCK_FLOWS, 8), (1, er.BLOCK_FLOWS + 1, 8),
+               (2, er.BLOCK_FLOWS + 4, 8), (96, 92_928, 152), (3, 2_000_000, 152),
+               (1, 1_900_000, 4)]
+
+
+def _every_plan(G, F, N):
+    """Every tiling, each also with one flow a lane where it takes 4."""
+    plans = er.tilings(G, F, N)
+    return plans + [er.tiling(G, F, N, p.cluster, vector=1) for p in plans if p.vector == 4]
+
+
+@pytest.mark.parametrize("G,F,N", _PLAN_CASES)
+def test_plan_routes_and_covers_every_flow(G, F, N):
+    """The block route up to `BLOCK_FLOWS`, the cluster route past it;
+    every flow of a member in exactly one block, the grid a multiple of the
+    cluster size, and threads and shared memory within the kernel's limits;
+    so for every other tiling the sweep runs.  The plan's cluster blocks
+    all hold flows (a forced cluster at a few flows may leave blocks
+    empty, which the cuda tests run)."""
+    for sms in (1, 66, 132):
+        p = er.plan(G, F, N, sms)
+        assert p.route == ("block" if F <= er.BLOCK_FLOWS else "cluster")
+        for q in [p] + _every_plan(G, F, N):
+            assert q.grid == G * q.cluster and q.grid % q.cluster == 0
+            assert q.threads % 32 == 0 and 32 <= q.threads <= 1024
+            assert q.vector == 1 or (q.vector == 4 and F % 4 == 0)
+            # The one 64-bit argument the C entry unpacks.
+            assert (q.word & 0xFFFFFFFF, q.word >> 32 & 0x7FF, q.word >> 43 & 0xF,
+                    q.word >> 47) == (q.span, q.threads, q.cluster, q.vector)
+            if q.route == "block":
+                assert q.cluster == 1 and q.span == F
+                assert q.smem == 4 * (2 * N + -(-F // 32)) <= 232_448
+                continue
+            assert 2 <= q.cluster <= er.MAX_CLUSTER and q.span % er.SPAN_QUANTUM == 0
+            assert q.smem == 4 * (4 * N + q.span // 32) <= 48 * 1024
+            flows = np.zeros(F, dtype=int)
+            for r in range(q.cluster):
+                block = slice(r * q.span, min(F, (r + 1) * q.span))
+                assert block.start < block.stop or q is not p
+                flows[block] += 1
+            assert (flows == 1).all()
+
+
+@pytest.mark.cuda
+def test_plan_dims_are_the_sources(cuda):
+    """`Plan.grid`, ``threads`` and ``smem`` are what the C entry unpacks
+    from the plan's ``word``, for every plan and tiling of the plan cases."""
+    import ctypes
+
+    from repro_torch.kernels.common import launch
+
+    out = (ctypes.c_longlong * 3)()
+    for G, F, N in _PLAN_CASES:
+        plans = [er.plan(G, F, N, sms) for sms in (1, 66, 132)] + _every_plan(G, F, N)
+        for q in plans:
+            launch("event_resolve_dims", G, F, N, q.word, out)
+            assert tuple(out) == (q.grid, q.threads, q.smem), (G, F, N, q)
+
+
+# (G, F, N, pairs) on the card: the reference's cases, the main path's
+# bucket, fig5, the whole trace, either side of the route switch and of the
+# vector loads, F = 0, and a range that ends mid-block.
+_KERNEL_CASES = CASES + [
+    (96, 320, 12, None), (3, 1400, 32, None), (1, 266_272, 152, None), (2, 0, 4, None),
+    (1, er.BLOCK_FLOWS, 8, None), (2, er.BLOCK_FLOWS + 4, 8, None),
+    (2, er.BLOCK_FLOWS + 1, 8, 3), (1, 266_260, 152, None), (3, 9_001, 5, None),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("discipline", DISCIPLINES)
-@pytest.mark.parametrize("G,F,N,pairs", CASES + [(96, 320, 12, None), (3, 1400, 32, None),
-                                                 (1, 266_272, 152, None), (2, 0, 4, None)])
+@pytest.mark.parametrize("G,F,N,pairs", _KERNEL_CASES)
 def test_kernel_matches_plain(cuda, G, F, N, pairs, discipline):
+    """Every tiling (`tilings`, with 1 and 4 flows a lane) and the plan's
+    equal to the twin."""
     s = _port(_state(G + F + N, G, F, N, pairs, f32=False), cuda)
-    before = er.LAUNCHES
-    got = er.event_resolve(**s, discipline=discipline)
-    torch.cuda.synchronize()
-    assert er.LAUNCHES == before + 1
     want = er.event_resolve_plain(**s, discipline=discipline)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b)
+    for p in [None] + _every_plan(G, F, N):
+        before = er.LAUNCHES
+        got = er.event_resolve(**s, discipline=discipline, plan=p)
+        torch.cuda.synchronize()
+        assert er.LAUNCHES == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("discipline", DISCIPLINES)
+@pytest.mark.parametrize("G,F,N", [(8, 266_272, 152), (8, 1520, 32), (96, 336, 12)])
+def test_kernel_one_live_member_matches_plain(cuda, G, F, N, discipline):
+    """One live member among members that pend nothing (the calendar's
+    padding and finished members), every tiling."""
+    st = _state(F, G, F, N, f32=False)
+    st["pending"][np.arange(G) != G // 2] = False
+    s = _port(st, cuda)
+    want = er.event_resolve_plain(**s, discipline=discipline)
+    for p in [None] + _every_plan(G, F, N):
+        got = er.event_resolve(**s, discipline=discipline, plan=p)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), p
+
+
+@pytest.mark.cuda
+def test_kernel_on_unaligned_views(cuda):
+    """Operands one element past an aligned start take the 1-flow loads."""
+    st = _state(5, 2, 20_000, 16, f32=False)
+    s = {}
+    for k, v in _port(st, cuda).items():
+        s[k] = torch.empty(v.numel() + 1, dtype=v.dtype, device=cuda)[1:].view(v.shape)
+        s[k].copy_(v)
+    want = er.event_resolve_plain(**s, discipline="greedy")
+    for p in [None] + er.tilings(2, 20_000, 16):
+        got = er.event_resolve(**s, discipline="greedy", plan=p)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), p
 
 
 @pytest.mark.cuda
 def test_kernel_refuses_past_its_shared_memory(cuda):
-    s = _port(_state(0, 1, 1_900_000, 4), cuda)
+    """Past the block route's 227 KB and every cluster's 48 KB: at 4 ports,
+    7 million flows need 8 blocks of 109 KB or one of 875 KB."""
+    s = _port(_state(0, 1, 7_000_000, 4), cuda)
     with pytest.raises(ValueError, match="shared memory"):
         er.event_resolve(**s)

@@ -3,7 +3,7 @@ oracles and interpret-mode Pallas kernels (CPU), kernels against their
 twins (CUDA, marked ``cuda``; they skip without a card).
 
 Tolerances:
-  * pair_resolve -- exact (integer ids, boolean mask);
+  * pair_resolve -- exact (integer ids, boolean mask), on every route;
   * port_stats -- tau exact; rho bit-identical to host NumPy in f64 (the
     twin sums in NumPy's order); against the f32 Pallas kernel and its
     f32 oracle, rho agrees to 2N f32 roundings (2N * 2**-24 relative);
@@ -103,16 +103,94 @@ def test_pair_resolve_cpu_does_not_count_and_validates():
         pr.pair_resolve(torch.zeros((2, 3, 4), dtype=torch.int32), torch.zeros((2, 3, 4), dtype=torch.bool))
 
 
+# (G, N) on either side of the route switch (`BLOCK_PORTS` = 32) and of
+# the 4-pair vector loads (N % 4), one member and the widths of the trace.
+_PAIR_PLAN_CASES = [(96, 12), (8, 48), (8, 152), (2, 240), (1, 1), (1, 32), (8, 31),
+                    (8, 32), (8, 33), (3000, 12), (5, 7), (1, 240)]
+_PAIR_SMEM = 48 * 1024  # both routes stay within the default shared memory
+
+
+@pytest.mark.parametrize("G,N", _PAIR_PLAN_CASES)
+def test_pair_resolve_plan_routes_and_covers_every_row(G, N):
+    """The block route up to `BLOCK_PORTS`, the cluster route past it;
+    every member in exactly one block (block route), every row of a member
+    in exactly one block of its cluster, no block empty, and the grid a
+    multiple of the cluster size (cluster route); shared memory and threads
+    within the kernel's limits.  So is every other tiling the sweep runs."""
+    for sms in (1, 66, 132):
+        p = pr.plan(G, N, sms)
+        assert p.route == ("block" if N <= pr.BLOCK_PORTS else "cluster")
+        for q in [p] + pr.tilings(G, N):
+            assert q.smem <= _PAIR_SMEM and q.threads % 32 == 0 and q.threads <= 1024
+            assert q.width == (q.cluster or -q.per_block)  # the C entry's argument
+            if q.route == "block":
+                assert q.cluster == 0 and q.per_block * N * N <= q.threads
+                assert (q.grid - 1) * q.per_block < G <= q.grid * q.per_block
+                continue
+            assert q.per_block == 0 and 1 <= q.cluster <= pr.MAX_CLUSTER
+            assert q.grid == G * q.cluster and q.grid % q.cluster == 0
+            rows = np.zeros(N, dtype=int)
+            for r in range(q.cluster):
+                block = slice(r * q.rows, min(N, (r + 1) * q.rows))
+                assert block.start < block.stop  # no empty block
+                rows[block] += 1
+            assert (rows == 1).all()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("G,N", [(96, 12), (8, 48), (3, 1), (8, 152), (2, 240)])
-def test_pair_resolve_kernel_matches_plain(cuda, G, N):
+def test_pair_resolve_plan_dims_are_the_sources(cuda):
+    """`Plan.grid`, ``threads`` and ``smem`` are what the C entry derives
+    from the plan's ``width``, for every plan and tiling of the plan cases."""
+    import ctypes
+
+    from repro_torch.kernels.common import launch
+
+    out = (ctypes.c_longlong * 3)()
+    for G, N in _PAIR_PLAN_CASES:
+        for q in [pr.plan(G, N, sms) for sms in (1, 66, 132)] + pr.tilings(G, N):
+            launch("pair_resolve_dims", G, N, q.width, out)
+            assert tuple(out) == (q.grid, q.threads, q.smem), (G, N, q)
+
+
+# (G, N): every route and the shapes on either side of each switch.
+_PAIR_KERNEL_CASES = [(96, 12), (8, 48), (3, 1), (8, 152), (2, 240), (1, 12), (1, 152),
+                      (8, 31), (8, 32), (8, 33), (5, 7), (1, 240)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("one_live", [False, True], ids=["all-live", "one-live"])
+@pytest.mark.parametrize("G,N", _PAIR_KERNEL_CASES)
+def test_pair_resolve_kernel_matches_plain(cuda, G, N, one_live):
+    """Every tiling (`tilings`) and the plan's equal to the twin; with
+    ``one_live`` every member but one claims nothing and idles nowhere."""
     claim, idle = _claims(G, N, G + N, F=N * N)
+    if one_live:
+        dead = np.arange(G) != G // 2
+        claim[dead], idle[dead] = N * N, False
     c, i = torch.from_numpy(claim).to(cuda), torch.from_numpy(idle).to(cuda)
-    before = pr.LAUNCHES
-    got = pr.pair_resolve(c, i)
-    torch.cuda.synchronize()
-    assert pr.LAUNCHES == before + 1
-    assert torch.equal(got, pr.pair_resolve_plain(c, i))
+    want = pr.pair_resolve_plain(c, i)
+    for p in [None] + pr.tilings(G, N):
+        before = pr.LAUNCHES
+        got = pr.pair_resolve(c, i, plan=p)
+        torch.cuda.synchronize()
+        assert pr.LAUNCHES == before + 1
+        assert torch.equal(got, want), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [12, 152])
+def test_pair_resolve_kernel_on_unaligned_views(cuda, N):
+    """Contiguous views one element past an aligned start take the 4-byte
+    loads; the result is the same."""
+    claim, idle = _claims(4, N, N, F=N * N)
+    c = torch.empty(claim.size + 1, dtype=torch.int32, device=cuda)[1:].view(claim.shape)
+    i = torch.empty(idle.size + 1, dtype=torch.bool, device=cuda)[1:].view(idle.shape)
+    c.copy_(torch.from_numpy(claim))
+    i.copy_(torch.from_numpy(idle))
+    for p in [None] + pr.tilings(4, N):
+        got = pr.pair_resolve(c, i, plan=p)
+        torch.cuda.synchronize()
+        assert torch.equal(got, pr.pair_resolve_plain(c, i)), p
 
 
 @pytest.mark.cuda
