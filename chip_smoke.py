@@ -12,7 +12,13 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    (CUDA events, median of 30 runs after warm-up), the twin's, one library
    call's where one computes the same function, the least time the card
    could take (`bound_ms`) and the profiler's device-only time, the
-   library call's beside it (all its kernels); each LP-terms shape logs
+   library call's beside it (all its kernels); `port_stats` is held
+   bit for bit against its twin and host NumPy under its plan and every
+   tiling, and timed, at the stacked demands the port feeds it (the main
+   path's (3200, 10, 10), `pack_lp_arrays(wide)`'s (256, 150, 150), the
+   whole trace's (526, 150, 150)) and at (192, 48, 48) and (64, 240, 240),
+   each shape logging its plan, and the stacked inputs' pageable
+   host-to-device copy is logged beside the kernel; each LP-terms shape logs
    the tiles `lp_terms.plan` picked (grid, tiles, split p), and the
    ``kernels`` line carries the main path's as ``plan``.  The calendar
    round kernels log the route their `plan` picked at each shape (the
@@ -370,13 +376,93 @@ def check_event_tilings(torch, er, args, discipline, want, label):
     return len(plans)
 
 
-def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays,
+def host_copy(torch, host_parts):
+    """What `lp.instance_port_stats` pays before its `port_stats` launch:
+    ``np.concatenate`` of the instances' demands, then the pageable
+    host-to-device copy.  Median of 10 of each, host clock (the copy ending
+    in a synchronize) and CUDA events around the copy."""
+    concat, host, events = [], [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        stacked = torch.from_numpy(np.concatenate(host_parts))
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t2 = time.perf_counter()
+        start.record()
+        stacked.to("cuda")
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t2) * 1e3)
+        events.append(start.elapsed_time(end))
+        concat.append((t1 - t0) * 1e3)
+    return (statistics.median(concat), statistics.median(host),
+            statistics.median(events), stacked.numel() * 8)
+
+
+def phase_port_stats(torch, demands):
+    """`port_stats` against its twin and host NumPy bit for bit (rho f64,
+    tau exact) under its plan and every tiling (`tilings`), at the
+    stacked demands the port feeds it (``demands``: label -> the instances'
+    (M_b, N, N) arrays) and at random ones at 48 and 240 ports; each shape
+    logs its plan and is timed (the main path's last, which the ``kernels``
+    line reports), and the pageable copy of each stacked input is logged
+    beside the kernel."""
+    from repro_torch.kernels import port_stats as ps
+    from repro_torch.kernels.common import sm_count
+
+    dev = torch.device("cuda")
+    sms = sm_count(dev)
+    g = torch.Generator().manual_seed(48)
+    parts = {}
+    for label, (M, N) in (("48 ports, random", (192, 48)), ("240 ports, random", (64, 240))):
+        d = torch.rand((M, N, N), generator=g, dtype=torch.float64) * 100.0
+        parts[label] = [torch.where(torch.rand((M, N, N), generator=g) < 0.5, d, 0.0).numpy()]
+    parts.update(demands)
+    main = list(demands)[0]
+    for label in [k for k in parts if k != main] + [main]:  # the main path's last
+        host_parts = parts[label]
+        d = torch.from_numpy(np.concatenate(host_parts)).to(dev)
+        M, N = d.shape[:2]
+        p = ps.plan(M, N, sms)
+        rho_p, tau_p = ps.port_stats_plain(d)
+        dh = d.cpu().numpy()
+        rho_np = np.concatenate([dh.sum(axis=2), dh.sum(axis=1)], axis=-1)
+        check(np.array_equal(rho_p.cpu().numpy(), rho_np), f"port_stats twin {label} != NumPy")
+        plans = [None] + ps.tilings(M, N)
+        for q in plans:
+            rho, tau = ps.port_stats(d, plan=q)
+            torch.cuda.synchronize()
+            check(torch.equal(tau, tau_p), f"port_stats tau {label} plan {q} != plain")
+            check(torch.equal(rho, rho_p), f"port_stats rho {label} plan {q} != plain")
+        log(f"port_stats {label} ({M},{N},{N}): rho and tau exact (plain and NumPy) under "
+            f"the plan and {len(plans) - 1} tilings; plan {json.dumps(dataclasses.asdict(p))}")
+        # Bytes: f64 demands in, f64 rho and int32 tau out; operations:
+        # row add, column add, two compares.
+        t = timed_call(
+            torch, f"port_stats {label} ({M},{N},{N}) route {p.route}", "port_stats",
+            lambda: ps.port_stats(d), lambda: ps.port_stats_plain(d),
+            lambda: (d.sum(dim=2), d.sum(dim=1), (d > 0).sum(dim=2), (d > 0).sum(dim=1)),
+            M * N * N * 8 + M * 2 * N * (8 + 4), M * N * N * 4, F64_OPS_PER_S,
+        )
+        if label in demands:
+            concat_ms, copy_ms, copy_ev_ms, nbytes = host_copy(torch, host_parts)
+            log(f"port_stats {label}: input {nbytes} bytes; np.concatenate {concat_ms:.4f} ms, "
+                f"pageable host-to-device copy {copy_ms:.4f} ms host clock, "
+                f"{copy_ev_ms:.4f} ms CUDA events; the kernel {t['ms']:.4f} ms (events)")
+    return dict(name="port_stats", route="cuda",
+                source="src/repro_torch/csrc/port_stats.cu",
+                replaces="src/repro/kernels/port_stats/kernel.py:37",
+                max_abs_err=0.0, **t, extra=dict(plan=dataclasses.asdict(p)))
+
+
+def phase_kernels(torch, port_stats_demands, ens_lp_arrays, mixed_lp_arrays,
                   wide_lp_arrays, single_insts):
     from repro_torch.core.lp import _precedence_X
     from repro_torch.kernels import lp_terms as lt
     from repro_torch.kernels.common import sm_count
     from repro_torch.kernels import pair_resolve as pr
-    from repro_torch.kernels import port_stats as ps
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -417,40 +503,7 @@ def phase_kernels(torch, paper_demands, ens_lp_arrays, mixed_lp_arrays,
         extra=dict(plan=dataclasses.asdict(pr.plan(G, N, sms))),
     ))
 
-    # port_stats: f64 sums in NumPy's order, so exact (0 ulp); tau exact.
-    # The paper ensemble's stacked demands are the main path's input.
-    main_d = torch.from_numpy(paper_demands).to(dev)
-    g = torch.Generator().manual_seed(48)
-    d48 = torch.rand((192, 48, 48), generator=g, dtype=torch.float64) * 100.0
-    d48 = torch.where(torch.rand((192, 48, 48), generator=g) < 0.5, d48, 0.0)
-    for d in (main_d, d48.to(dev)):
-        M, N = d.shape[:2]
-        rho, tau = ps.port_stats(d)
-        torch.cuda.synchronize()
-        rho_p, tau_p = ps.port_stats_plain(d)
-        check(torch.equal(tau, tau_p), f"port_stats tau ({M},{N},{N}) != plain")
-        check(torch.equal(rho, rho_p), f"port_stats rho ({M},{N},{N}) != plain")
-        # The same sums on the host, in NumPy's own order.
-        dh = d.cpu().numpy()
-        rho_np = np.concatenate([dh.sum(axis=2), dh.sum(axis=1)], axis=-1)
-        check(np.array_equal(rho.cpu().numpy(), rho_np), "port_stats rho != NumPy")
-        log(f"port_stats ({M},{N},{N}): rho and tau exact (plain and NumPy)")
-    M, N = main_d.shape[:2]
-    rows.append(dict(
-        name="port_stats", route="cuda",
-        source="src/repro_torch/csrc/port_stats.cu",
-        replaces="src/repro/kernels/port_stats/kernel.py:37",
-        max_abs_err=0.0,
-        # Bytes: f64 demands in, f64 rho and int32 tau out; operations:
-        # row add, column add, two compares.
-        **timed_call(
-            torch, f"port_stats ({M},{N},{N})", "port_stats",
-            lambda: ps.port_stats(main_d), lambda: ps.port_stats_plain(main_d),
-            lambda: (main_d.sum(dim=2), main_d.sum(dim=1),
-                     (main_d > 0).sum(dim=2), (main_d > 0).sum(dim=1)),
-            M * N * N * 8 + M * 2 * N * (8 + 4), M * N * N * 4, F64_OPS_PER_S,
-        ),
-    ))
+    rows.append(phase_port_stats(torch, port_stats_demands))
 
     # lp_terms_batch: f32 sums in different orders, stated tolerance; the
     # paper bucket (the main path's shape), a mixed-N bucket and 300 ports.
@@ -1993,7 +2046,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     rows = phase_kernels(
         torch,
-        np.concatenate([inst.demands for inst in paper]),
+        # `port_stats`'s inputs as `lp.instance_port_stats` stacks them: the
+        # main path's ensemble, `pack_lp_arrays(wide)`, the whole trace.
+        {"main path": [inst.demands for inst in paper],
+         "wide": [inst.demands for inst in wide],
+         "fb_full": [fb_full.demands]},
         pack_lp_arrays(paper, pad_coflows=Mp, pad_ports=Pp),
         pack_lp_arrays(mixed, pad_coflows=40, pad_ports=24),
         pack_lp_arrays(wide),

@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
-"""The calendar round kernels' host cost, the LP stage of the
-paper-default ensemble, serving gemma3-1b and xlstm-1.3b and training
-gemma3-1b at full width: two checkouts of the repo side by side on one
-NVIDIA GPU.
+"""The `port_stats` kernel's device and host cost, the calendar round
+kernels' host cost, the LP stage of the paper-default ensemble, serving
+gemma3-1b and xlstm-1.3b and training gemma3-1b at full width: two
+checkouts of the repo side by side on one NVIDIA GPU.
 
-    python3 scripts/compare_trees.py BEFORE AFTER [--phases 2,3,6,7,8] [--out DIR]
+    python3 scripts/compare_trees.py BEFORE AFTER [--phases ps,2,3,6,7,8] [--out DIR]
 
 Runs each checkout in a fresh process, in the order BEFORE, AFTER, AFTER,
 BEFORE, so that a drift of the host's clock over the call shows as a gap
 between the two runs of one checkout.  Each run builds that checkout's
 kernels, then runs the phases picked among:
 
+* ps, the `port_stats` kernel: the host's cost of issuing one call at the
+  main path's shape (the paper-default ensemble's stacked (3200, 10, 10)
+  demands; random here).  After the four runs a fifth process loads both
+  checkouts' wrappers and times that call through each in turn, as for
+  phase 3, then profiles each checkout's device microseconds per launch
+  (30 launches a window, BEFORE, AFTER, AFTER, BEFORE) at the shapes both
+  take: (3200, 10, 10), (192, 48, 48), (256, 150, 150) and (526, 150,
+  150) (`pack_lp_arrays(wide)` and the whole `fb_full` trace);
 * 2, the calendar rounds: the host's cost of issuing one `pair_resolve`
   call at the main path's shape (G = 96, N = 12) and one `event_resolve`
   call at its bucket's (G = 96, F = 336, N = 12; greedy).  After the four
@@ -34,8 +42,8 @@ kernels, then runs the phases picked among:
   the 512 window) and one `mlstm_chunk` call at xlstm-1.3b's (4 slots x 4
   heads, one position, Dh 512, bf16, a carried state).
 
-``--phases`` picks them (default: 6, 7 and 8; 2 and 3 each add the fifth,
-interleaved process).  Each run's log lands in
+``--phases`` picks them (default: 6, 7 and 8; ps, 2 and 3 each add the
+fifth, interleaved process).  Each run's log lands in
 DIR/<n>_<BEFORE|AFTER>.log (default ``results/compare_trees``); the lines
 that carry the end-to-end numbers are printed run by run.  Exits non-zero
 if any run fails.
@@ -52,8 +60,9 @@ import time
 from pathlib import Path
 
 # Lines of a run's log that carry the numbers compared.
-KEYS = ("issue", "stage seconds", "traced lp_100_steps", "tokens/s", "prefill s per wave",
-        "prefill wave (", "profiled decode tick:", "train step", "profiled train step:")
+KEYS = ("issue", "device us", "stage seconds", "traced lp_100_steps", "tokens/s",
+        "prefill s per wave", "prefill wave (", "profiled decode tick:", "train step",
+        "profiled train step:")
 # chip_smoke.py's phase functions; phase 3 is `phase_lp_stage` here.
 PHASES = {"6": "phase_serving", "7": "phase_serving_xlstm", "8": "phase_training"}
 
@@ -166,6 +175,22 @@ def resolve_issue_cost(torch) -> None:
     print(f"issue: event_resolve (96, 336, 12): {us:.2f} us of host time per call", flush=True)
 
 
+def port_stats_demands(torch, M: int, N: int):
+    """(M, N, N) f64 demands on the card from a seed, half of them zero."""
+    gen = torch.Generator(device="cuda").manual_seed(M + N)
+    d = 100.0 * torch.rand((M, N, N), generator=gen, device="cuda", dtype=torch.float64)
+    return torch.where(torch.rand((M, N, N), generator=gen, device="cuda") < 0.5, d, 0.0)
+
+
+def port_stats_issue_cost(torch) -> None:
+    """Host cost of issuing one `port_stats` call at the main path's shape."""
+    from repro_torch.kernels import port_stats as ps
+
+    d = port_stats_demands(torch, 3200, 10)
+    us = per_call_us(torch, lambda: ps.port_stats(d))
+    print(f"issue: port_stats (3200, 10, 10): {us:.2f} us of host time per call", flush=True)
+
+
 def load_kernels(tree: Path, names: tuple[str, ...]) -> list:
     """Checkout ``tree``'s `repro_torch.kernels.<name>` modules, its kernels
     built and loaded.  Its modules leave `sys.modules` once imported (they
@@ -216,8 +241,43 @@ def resolve_calls(torch, before: Path, after: Path) -> dict:
     return fns
 
 
+def port_stats_calls(torch, before: Path, after: Path) -> dict:
+    """(tree, kind) -> one `port_stats` call at the main path's shape
+    through that checkout's wrapper."""
+    d = port_stats_demands(torch, 3200, 10)
+    fns = {}
+    for name, tree in (("BEFORE", before), ("AFTER", after)):
+        (ps,) = load_kernels(tree, ("port_stats",))
+        fns[name, "port_stats"] = lambda ps=ps: ps.port_stats(d)
+    return fns
+
+
+#: Shapes at which both checkouts' `port_stats` are profiled: the parent
+#: takes at most 168 ports.
+PORT_STATS_SHAPES = ((3200, 10), (192, 48), (256, 150), (526, 150))
+
+
+def port_stats_device(torch, before: Path, after: Path) -> None:
+    """Each checkout's `port_stats` device microseconds per launch at
+    `PORT_STATS_SHAPES`, in the order BEFORE, AFTER, AFTER, BEFORE, and
+    whether the two give the same bits."""
+    from resolve_tiles import device_us
+
+    mods = {name: load_kernels(tree, ("port_stats",))[0]
+            for name, tree in (("BEFORE", before), ("AFTER", after))}
+    for M, N in PORT_STATS_SHAPES:
+        d = port_stats_demands(torch, M, N)
+        same = all(torch.equal(a, b) for a, b in zip(mods["BEFORE"].port_stats(d),
+                                                     mods["AFTER"].port_stats(d)))
+        times = [(name, device_us(torch, lambda ps=mods[name]: ps.port_stats(d), "port_stats"))
+                 for name in ("BEFORE", "AFTER", "AFTER", "BEFORE")]
+        print(f"device us: port_stats ({M}, {N}, {N}): "
+              + ", ".join(f"{name} {us:.2f}" for name, us in times)
+              + f" (30 launches a window; bits {'equal' if same else 'DIFFER'})", flush=True)
+
+
 #: The calls each phase times through both checkouts in turn.
-INTERLEAVED = {"2": resolve_calls, "3": lp_calls}
+INTERLEAVED = {"ps": port_stats_calls, "2": resolve_calls, "3": lp_calls}
 
 
 def issue_interleaved(torch, before: Path, after: Path, phase: str, rounds: int = 50,
@@ -288,7 +348,9 @@ def run_tree(tree: Path, phases: list[str]) -> int:
     if set(phases) - set(INTERLEAVED):
         issue_cost(torch, fa, mc)
     for phase in phases:
-        if phase == "2":
+        if phase == "ps":
+            port_stats_issue_cost(torch)
+        elif phase == "2":
             resolve_issue_cost(torch)
         elif phase == "3":
             phase_lp_stage(torch, smoke)
@@ -302,7 +364,7 @@ def main() -> int:
     ap.add_argument("before", type=Path)
     ap.add_argument("after", type=Path)
     ap.add_argument("--phases", default="6,7,8",
-                    help="phases to run, among 2, 3, 6, 7 and 8 (default: 6,7,8)")
+                    help="phases to run, among ps, 2, 3, 6, 7 and 8 (default: 6,7,8)")
     ap.add_argument("--out", type=Path, default=Path("results/compare_trees"))
     ap.add_argument("--run", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("--interleave", action="store_true", help=argparse.SUPPRESS)
@@ -319,6 +381,8 @@ def main() -> int:
         for phase in phases:
             if phase in INTERLEAVED:
                 issue_interleaved(torch, args.before.resolve(), args.after.resolve(), phase)
+            if phase == "ps":
+                port_stats_device(torch, args.before.resolve(), args.after.resolve())
         return 0
     args.out.mkdir(parents=True, exist_ok=True)
     rc = 0

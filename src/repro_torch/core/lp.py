@@ -232,9 +232,10 @@ def instance_port_stats(
 ) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """Per-instance ``(rho (M, 2N) f64, tau (M, 2N) int32)`` on ``device``.
 
-    One `port_stats` launch per distinct port count: matrices of one N are
-    stacked unpadded (zero padding would change NumPy's pairwise summation
-    order, and with it the last bits of rho).
+    One `port_stats` launch per distinct port count, which takes any N (up
+    to the kernel's `MAX_PORTS`): matrices of one N are stacked unpadded
+    (zero padding would change NumPy's pairwise summation order, and with
+    it the last bits of rho).
     """
     out: list = [None] * len(instances)
     by_n: dict[int, list[int]] = {}

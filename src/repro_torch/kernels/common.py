@@ -53,7 +53,8 @@ _SIGNATURES = {
     "pair_resolve_dims": (_I,) * 3 + (_P,),
     "event_resolve": (_P,) * 11 + (_I,) * 4 + (_L, _P),
     "event_resolve_dims": (_I,) * 3 + (_L, _P),
-    "port_stats": (_P, _P, _P, _I, _I, _P),
+    "port_stats": (_P, _P, _P, _I, _I, _L, _P),
+    "port_stats_dims": (_I, _I, _L, _P),
     "lp_terms_batch": (_P,) * 7 + (_I,) * 7 + (_P,),
     "lp_terms": (_P, _P, _P, _F, _F, _P, _P) + (_I,) * 6 + (_P,),
     "lp_terms_smem": (_I,) * 4 + (_P,),

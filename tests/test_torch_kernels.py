@@ -211,7 +211,32 @@ def test_port_stats_plain_bit_identical_to_host(M, N):
     assert np.array_equal(tau.numpy(), tau_h)
 
 
-@pytest.mark.parametrize("M,N", [(4, 3), (3, 10), (2, 17)])
+@pytest.mark.parametrize("N", [129, 169, 240, 256, 257, 300, 520])
+def test_port_stats_plain_bytes_past_one_recursion_level(N):
+    """NumPy's pairwise recursion to its leaves of <= 128 terms: at 257
+    ports and past it the rows split more than once."""
+    d = _demands(2, N, N)
+    rho, tau = ps.port_stats_plain(torch.from_numpy(d))
+    rho_h, tau_h = host_port_stats(d)
+    assert rho.numpy().tobytes() == rho_h.tobytes()
+    assert np.array_equal(tau.numpy(), tau_h)
+
+
+@pytest.mark.parametrize("N", [5, 9, 130])
+def test_port_stats_plain_signed_zeros_as_host(N):
+    """Rows and columns of -0.0 sum to +0.0, as NumPy's reduction adds its
+    pairwise sum to the identity 0.0."""
+    d = _demands(3, N, N)
+    d[0] = -0.0
+    d[1, :, 2] = -0.0
+    d[2, 1, :] = -0.0
+    rho, tau = ps.port_stats_plain(torch.from_numpy(d))
+    rho_h, tau_h = host_port_stats(d)
+    assert rho.numpy().tobytes() == rho_h.tobytes()
+    assert np.array_equal(tau.numpy(), tau_h)
+
+
+@pytest.mark.parametrize("M,N", [(4, 3), (3, 10), (2, 17), (2, 169)])
 def test_port_stats_plain_matches_pallas_and_oracle(M, N):
     d = _demands(M, N, M + N)
     rho, tau = ps.port_stats(torch.from_numpy(d))
@@ -227,19 +252,134 @@ def test_port_stats_validates():
         ps.port_stats(torch.zeros((2, 3, 3), dtype=torch.float32))
     with pytest.raises(ValueError, match=r"\(M, N, N\)"):
         ps.port_stats(torch.zeros((2, 3, 4), dtype=torch.float64))
+    with pytest.raises(ValueError, match="unknown route"):
+        ps.tiling(2, 3, "wide", 1)
+    with pytest.raises(ValueError, match="at most 128 ports"):
+        ps.tiling(2, 129, "small", 1)
+    before = ps.LAUNCHES
+    ps.port_stats(torch.zeros((2, 3, 3), dtype=torch.float64))
+    assert ps.LAUNCHES == before
+
+
+# (M, N): the five timed shapes, either side of the route switch
+# (`SMALL_PORTS`), one matrix of one port, M not a multiple of the
+# run, and the widths past one recursion level.
+_PS_PLAN_CASES = [(3200, 10), (192, 48), (256, 150), (526, 150), (64, 240),
+                  (8, ps.SMALL_PORTS), (8, ps.SMALL_PORTS + 1), (1, 1), (101, 10), (2, 168),
+                  (3, 257), (2, 1024)]
+
+
+@pytest.mark.parametrize("M,N", _PS_PLAN_CASES)
+def test_port_stats_plan_routes_and_covers_every_matrix(M, N):
+    """The small route up to `SMALL_PORTS`, the stream route past it; every
+    matrix in exactly one block (small: runs of ``per_block``, the last one
+    short and not empty; stream: one block a matrix, whole rows a slab);
+    shared memory within the card's 227 KB; threads a multiple of 32.  So
+    is every other tiling the sweep runs."""
+    for sms in (1, 66, 132):
+        p = ps.plan(M, N, sms)
+        assert p.route == ("small" if N <= ps.SMALL_PORTS else "stream")
+        for q in [p] + ps.tilings(M, N):
+            assert q.smem <= 232_448 and q.threads % 32 == 0 and 32 <= q.threads <= 800
+            if q.route == "small":
+                assert q.threads <= 512 and N <= 128
+                assert q.stages == 0 and 1 <= q.per_block <= M
+                assert q.grid * q.per_block >= M > (q.grid - 1) * q.per_block
+                covered = np.zeros(M, dtype=int)
+                for b in range(q.grid):
+                    covered[b * q.per_block:(b + 1) * q.per_block] += 1
+                assert (covered == 1).all()
+                assert q.smem == 8 * q.per_block * N * (N | 1)
+                assert q.word == q.per_block | q.threads << 20
+                continue
+            assert q.grid == M and 1 <= q.rows <= min(N, 32) and 2 <= q.stages <= 8
+            # Column owners; a row warp per 4 rows and the copies' warp.
+            owners = q.threads - 32 * -(-q.rows // 4) - 32
+            assert 32 <= owners <= 512 and -(-N // owners) <= 16  # columns a thread
+            assert q.word == q.rows | owners << 20 | q.stages << 31
+
+
+def test_port_stats_plan_takes_up_to_max_ports():
+    """A plan within a block's shared memory at every width to `MAX_PORTS`."""
+    for N in (ps.SMALL_PORTS + 1, 168, 169, 1024, 1025, 4096, ps.MAX_PORTS):
+        p = ps.plan(4, N, 132)
+        owners = p.threads - 32 * -(-p.rows // 4) - 32
+        assert p.route == "stream" and p.smem <= 232_448 and -(-N // owners) <= 16
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,N", [(3200, 10), (192, 48), (2, 168)])
-def test_port_stats_kernel_matches_plain(cuda, M, N):
-    d = torch.from_numpy(_demands(M, N, N)).to(cuda)
-    rho, tau = ps.port_stats(d)
-    torch.cuda.synchronize()
-    rho_p, tau_p = ps.port_stats_plain(d)
-    assert torch.equal(rho, rho_p) and torch.equal(tau, tau_p)
+def test_port_stats_plan_dims_are_the_sources(cuda):
+    """`Plan.grid`, ``threads`` and ``smem`` are what the C entry derives
+    from the plan's ``word``, for every plan and tiling of the plan cases."""
+    import ctypes
+
+    from repro_torch.kernels.common import launch
+
+    out = (ctypes.c_longlong * 3)()
+    for M, N in _PS_PLAN_CASES:
+        for q in [ps.plan(M, N, sms) for sms in (1, 66, 132)] + ps.tilings(M, N):
+            launch("port_stats_dims", M, N, q.word, out)
+            assert tuple(out) == (q.grid, q.threads, q.smem), (M, N, q)
 
 
-# -------------------------------------------------------------- lp_terms_batch
+def _demands_of(M, N, kind):
+    """Demands of one ``kind``: "random" (half zero), "zeros" (matrix 0 all
+    -0.0, a zero row and a zero column elsewhere), "positive" (every entry
+    > 0)."""
+    d = _demands(M, N, M + N)
+    if kind == "zeros":
+        d[0] = -0.0
+        d[M // 2, :, N // 2] = 0.0
+        d[M - 1, N - 1, :] = -0.0
+    elif kind == "positive":
+        d = np.random.default_rng(N).uniform(1e-3, 100.0, (M, N, N))
+    return d
+
+
+# (M, N, kind): the old cases, one port, M not a multiple of any run, the
+# widths the parent refused and past one recursion level, zero and positive
+# demands, either side of the route switch.
+_PS_KERNEL_CASES = [(3200, 10, "random"), (192, 48, "random"), (2, 168, "random"),
+                    (1, 1, "random"), (101, 10, "random"), (7, 9, "random"), (5, 169, "random"),
+                    (4, 240, "random"), (3, 257, "random"), (2, 300, "random"),
+                    (9, 10, "zeros"), (4, 150, "zeros"), (9, 10, "positive"),
+                    (4, 150, "positive"), (8, ps.SMALL_PORTS, "random"),
+                    (8, ps.SMALL_PORTS + 1, "random")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,kind", _PS_KERNEL_CASES)
+def test_port_stats_kernel_matches_plain(cuda, M, N, kind):
+    """The plan's and every tiling bit for bit equal to the twin and to host
+    NumPy, on an aligned tensor and on a view one double off the 16-byte
+    grid (the scalar edges of the loads)."""
+    d_h = _demands_of(M, N, kind)
+    rho_h, tau_h = host_port_stats(d_h)
+    aligned = torch.from_numpy(d_h).to(cuda)
+    shifted = torch.empty(d_h.size + 1, dtype=torch.float64, device=cuda)[1:].view(d_h.shape)
+    shifted.copy_(aligned)
+    rho_p, tau_p = ps.port_stats_plain(aligned)
+    assert rho_p.cpu().numpy().tobytes() == rho_h.tobytes()
+    for d in (aligned, shifted):
+        for p in [None] + ps.tilings(M, N):
+            before = ps.LAUNCHES
+            rho, tau = ps.port_stats(d, plan=p)
+            torch.cuda.synchronize()
+            assert ps.LAUNCHES == before + 1
+            assert torch.equal(rho, rho_p) and torch.equal(tau, tau_p), p
+            assert np.array_equal(tau.cpu().numpy(), tau_h)
+
+
+@pytest.mark.cuda
+def test_port_stats_kernel_refuses_past_its_limits(cuda):
+    d = torch.zeros((1, ps.MAX_PORTS + 1, ps.MAX_PORTS + 1), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match=f"at most {ps.MAX_PORTS} ports"):
+        ps.port_stats(d)
+    d = torch.zeros((2, 600, 600), dtype=torch.float64, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ps.port_stats(d, plan=ps.tiling(2, 600, "stream", 32, 4))
+
+
 @pytest.mark.parametrize("B,M,P", [(1, 10, 8), (3, 20, 24), (2, 33, 5), (2, 12, 129), (1, 9, 300)])
 def test_lp_terms_batch_plain_matches_oracles(B, M, P):
     args = _lp_inputs(B, M, P, B * 1000 + M + P)
