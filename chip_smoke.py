@@ -124,7 +124,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    `quantize` and `dequantize` to their twins exactly at the reference's
    cases, the embedding's (589,824, 512) rows, a padded norm leaf and
    all-zero rows;
-9. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+9. the paper's Sec. V-B schemes (``PAPER_SCHEMES``: ``ours``,
+   ``wspt_order``, ``load_only``, ``sunflow_s``, ``bvn_s``) through
+   ``get_pipeline(s).run_batch(..., validate=True)`` on the 32
+   paper-default and the 8 trace-release instances with phase 3's LP
+   solutions, each scheme counted alone: kept schedules validate, every
+   weighted CCT is at least its LP objective / 1.005, the card's run is
+   bit-identical to the host's (and ``ours`` to phase 3's), `pair_resolve`
+   launches once per calendar round for the list circuits and neither
+   calendar kernel for ``sunflow_s`` / ``bvn_s`` (host calendars); a
+   fig3-style table (means over the ensemble of weighted CCT, p95 and p99
+   over ours', and the stage seconds of each scheme's run on the card),
+   with Fig. 3's claims
+   gated on the means (``bvn_s`` > ours, ``sunflow_s`` > 1,
+   ``load_only`` > 0.95, ``wspt_order`` < 1.3); then ``eps`` through
+   `run_eps` on four paper-default instances with delta = 0 and the exact
+   LP: within 4H (+1), card equal to host, and delta > 0 refused;
+10. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero as well without a CUDA device.
@@ -1309,13 +1325,15 @@ def stage_times(torch, label, instances):
 
 def check_same_schedule(ctx, g, c):
     """Two `ScheduleResult`s bit-identical: order, core of each flow,
-    prefix bounds, establish and complete times, CCTs."""
+    prefix bounds, establish and complete times (where kept), CCTs."""
     check(np.array_equal(g.order, c.order), f"{ctx}: orders differ")
     check(np.array_equal(g.allocation.core, c.allocation.core),
           f"{ctx}: core choices differ")
     check(np.array_equal(g.allocation.prefix_lb, c.allocation.prefix_lb),
           f"{ctx}: prefix bounds differ")
-    for k, (sg, sc) in enumerate(zip(g.core_schedules, c.core_schedules)):
+    check((g.core_schedules is None) == (c.core_schedules is None),
+          f"{ctx}: one run kept its schedules, the other not")
+    for k, (sg, sc) in enumerate(zip(g.core_schedules or [], c.core_schedules or [])):
         check(np.array_equal(sg.establish, sc.establish),
               f"{ctx} core {k}: establish times differ")
         check(np.array_equal(sg.complete, sc.complete),
@@ -2005,6 +2023,172 @@ def phase_training(torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the paper's schemes and EPS through the pipeline
+# ---------------------------------------------------------------------------
+
+# The reference's Fig. 3 claims (its tests/test_baselines.py), gated on
+# the means over the ensemble of each scheme's weighted CCT over ours'.
+FIG3_GATES = dict(
+    bvn_s=lambda r: r > 1.0,
+    sunflow_s=lambda r: r > 1.0,
+    load_only=lambda r: r > 0.95,
+    wspt_order=lambda r: r < 1.3,
+)
+FIG3_TEXT = dict(bvn_s="> ours (1.0)", sunflow_s="> 1.0", load_only="> 0.95",
+                 wspt_order="< 1.3")
+LIST_SCHEMES = ("ours", "wspt_order", "load_only")
+
+
+def timed_stages(torch, pipe):
+    """Wrap ``pipe``'s stage calls in host-clock timers, each call between
+    two synchronizes; returns the dict they add their seconds to: order
+    (`order_batch`), allocation (the device scan), circuit (the batched
+    calendar, or the sum of the host's per-instance schedules)."""
+    times = dict(order=0.0, allocation=0.0, circuit=0.0)
+    circuit = ("schedule_batch_arrays" if hasattr(pipe.circuit_stage, "schedule_batch_arrays")
+               else "schedule")
+    for stage, attr, key in ((pipe.order_stage, "order_batch", "order"),
+                             (pipe.allocate_stage, "allocate_batch_arrays", "allocation"),
+                             (pipe.circuit_stage, circuit, "circuit")):
+        def timed(*args, _fn=getattr(stage, attr), _key=key, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            times[_key] += time.perf_counter() - t0
+            return out
+
+        setattr(stage, attr, timed)
+    return times
+
+
+def phase_schemes(torch, label, instances, sols, ours_results):
+    """Every `PAPER_SCHEMES` entry through ``get_pipeline(s).run_batch(...,
+    validate=True)`` on the card with the ensemble's LP solutions, counted
+    alone: kept schedules validate, each weighted CCT is at least its LP
+    objective / 1.005, the card's run is bit-identical to the host's,
+    `pair_resolve` launches once per calendar round for the list circuits
+    and neither calendar kernel launches for the host circuits; then a
+    fig3-style table of the means over the ensemble (weighted CCT, p95 and
+    p99 over ours') and each scheme's stage seconds in the card's run
+    (`timed_stages`), and Fig. 3's claims gated on the means."""
+    from repro_torch.core.scheduler import tail_cct
+    from repro_torch.pipeline import PAPER_SCHEMES, batch_circuit, get_pipeline
+
+    expect_ps = len({inst.num_ports for inst in instances})
+    results, table = {}, {}
+    for scheme in PAPER_SCHEMES:
+        pipe = get_pipeline(scheme)
+        stage_s = timed_stages(torch, pipe)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = results[scheme] = pipe.run_batch(instances, lp_solutions=sols, validate=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stage_s = dict(stage_s)
+        counts = read_counts()
+        rounds = batch_circuit.ROUNDS["kernel"]
+        for b, (inst, sol, r) in enumerate(zip(instances, sols, res)):
+            check(r.total_weighted_cct >= sol.objective / 1.005,
+                  f"{label} {scheme} instance {b}: weighted CCT {r.total_weighted_cct} "
+                  f"below LP objective {sol.objective} / 1.005")
+            check(np.isfinite(r.ccts).all() and r.ccts.shape == (inst.num_coflows,),
+                  f"{label} {scheme} instance {b}: bad CCT vector")
+            check((r.lp is None) == (scheme == "wspt_order"),
+                  f"{label} {scheme} instance {b}: LP recorded wrongly")
+        check(counts["port_stats"] == expect_ps,
+              f"{label} {scheme}: port_stats launched {counts['port_stats']} times, "
+              f"expected {expect_ps}")
+        check(counts["lp_terms_batch"] == counts["lp_terms"] == 0,
+              f"{label} {scheme}: LP kernels launched with the LP solutions given")
+        check(counts["event_resolve"] == batch_circuit.ROUNDS["jax"] == 0,
+              f"{label} {scheme}: event_resolve launched {counts['event_resolve']} times")
+        if scheme in LIST_SCHEMES:
+            check(counts["pair_resolve"] == rounds > 0,
+                  f"{label} {scheme}: pair_resolve launched {counts['pair_resolve']} "
+                  f"times, expected {rounds} (one per calendar round)")
+        else:
+            check(counts["pair_resolve"] == rounds == 0,
+                  f"{label} {scheme}: pair_resolve launched {counts['pair_resolve']} "
+                  f"times on a host circuit stage, expected 0")
+        if scheme == "ours":
+            for b, (r, want) in enumerate(zip(res, ours_results)):
+                check_same_schedule(f"{label} ours vs phase 3 instance {b}", r, want)
+        t0 = time.perf_counter()
+        cpu = pipe.run_batch(instances, sols, validate=True, device="cpu")
+        host_wall = time.perf_counter() - t0
+        for b, (g, c) in enumerate(zip(res, cpu)):
+            check_same_schedule(f"{label} {scheme} GPU vs CPU instance {b}", g, c)
+        table[scheme] = dict(run_batch_s=wall, host_run_batch_s=host_wall,
+                             pair_resolve=counts["pair_resolve"], stage_s=stage_s)
+        log(f"{label} {scheme}: {len(instances)} instances, kept schedules valid, "
+            f"weighted CCT >= LP / 1.005, GPU and CPU bit-identical; run_batch "
+            f"{wall:.4f} s on the card ({host_wall:.4f} s on the host), its stage "
+            f"seconds {json.dumps({k: round(v, 4) for k, v in stage_s.items()})}; "
+            f"launches {json.dumps(counts)}")
+
+    ours = results["ours"]
+    for scheme in PAPER_SCHEMES:
+        row = table[scheme]
+        for key, fn in (("wcct", lambda r: r.total_weighted_cct),
+                        ("p95", lambda r: tail_cct(r.ccts, 0.95)),
+                        ("p99", lambda r: tail_cct(r.ccts, 0.99))):
+            row[key] = float(np.mean([fn(r) / fn(o) for r, o in zip(results[scheme], ours)]))
+        if scheme in FIG3_GATES:
+            check(FIG3_GATES[scheme](row["wcct"]),
+                  f"{label}: Fig. 3 claim {scheme} {FIG3_TEXT[scheme]} fails: mean "
+                  f"normalized weighted CCT {row['wcct']}")
+        log(f"{label} fig3 {scheme}: mean over {len(instances)} of weighted CCT / ours "
+            f"{row['wcct']:.4f}, p95 / ours {row['p95']:.4f}, p99 / ours "
+            f"{row['p99']:.4f}" + (f" (gate {FIG3_TEXT[scheme]})" if scheme in FIG3_GATES else ""))
+    log(f"{label} fig3 table: " + json.dumps(table))
+    return table
+
+
+def phase_eps(torch, seeds, positive, positive_sol):
+    """`eps` on paper-default instances with delta = 0 and the exact LP
+    (HiGHS), through `run_eps` on the card and on the host: ratio within
+    4H (+1), at least 1, CCTs bit-identical, no calendar kernel launched;
+    `get_pipeline("eps")` refuses ``positive`` (delta > 0)."""
+    from repro_torch.core import lp
+    from repro_torch.core.eps import run_eps
+    from repro_torch.pipeline import get_pipeline
+    from repro_torch.traffic.instances import paper_default_instance
+
+    t0 = time.perf_counter()
+    reset_counts()
+    ratios = []
+    for seed in seeds:
+        inst = dataclasses.replace(paper_default_instance(seed=seed), delta=0.0)
+        sol = lp.solve_exact(inst)
+        r = run_eps(inst, sol)
+        c = run_eps(inst, sol, device="cpu")
+        check(r.approx_ratio <= r.bound,
+              f"eps seed {seed}: ratio {r.approx_ratio} > bound {r.bound}")
+        check(r.approx_ratio >= 1.0 - 1e-9,
+              f"eps seed {seed}: ratio {r.approx_ratio} below the LP lower bound")
+        check(np.array_equal(r.ccts, c.ccts) and np.array_equal(r.order, c.order),
+              f"eps seed {seed}: GPU and CPU runs differ")
+        ratios.append(r.approx_ratio)
+        log(f"eps seed {seed} (delta 0, exact LP): weighted CCT / LP {r.approx_ratio:.4f}, "
+            f"bound {r.bound:.0f}; Theorem 2's per-coflow max(T - a - 4H T~) "
+            f"{r.theorem2_percoflow_violation:.4g}; "
+            f"GPU and CPU bit-identical")
+    counts = read_counts()
+    check(counts["pair_resolve"] == counts["event_resolve"] == 0,
+          f"eps: calendar kernels launched {counts}")
+    try:
+        get_pipeline("eps").run(positive, positive_sol)
+    except ValueError as e:
+        check("delta == 0" in str(e), f"eps refused delta > 0 for another reason: {e}")
+    else:
+        raise AssertionError("eps ran an instance with delta > 0")
+    log(f"eps: {len(ratios)} instances within 4H (+1), max ratio {max(ratios):.4f}; "
+        f"delta > 0 refused; {time.perf_counter() - t0:.2f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2114,7 +2298,16 @@ def main() -> int:
     # Phase 8: training gemma3-1b at full width with compressed gradients.
     train_counts = phase_training(torch)
 
-    # Phase 9: the kernels line (each kernel's launches on its main path),
+    # Phase 9: the paper's schemes on both ensembles with phase 3's LP
+    # solutions, then EPS on four delta = 0 instances.
+    t0 = time.perf_counter()
+    phase_schemes(torch, "schemes paper default", paper, sols, paper_results["greedy"])
+    phase_schemes(torch, "schemes trace releases", trace, trace_sols,
+                  trace_results["greedy"])
+    phase_eps(torch, range(4), paper[0], sols[0])
+    log(f"phase 9 (paper schemes, eps): {time.perf_counter() - t0:.2f} s")
+
+    # Phase 10: the kernels line (each kernel's launches on its main path),
     # then the result.
     counts["lp_terms"] = single_counts["lp_terms"]
     counts["event_resolve"] = flow_counts["event_resolve"]

@@ -101,6 +101,20 @@ class CoflowInstance:
         """R = sum_k r^k."""
         return float(self.rates.sum())
 
+    # -- derived stats ----------------------------------------------------
+    def port_stats(self) -> tuple[np.ndarray, np.ndarray]:
+        """(rho, tau): each (M, 2N)."""
+        return port_stats(self.demands)
+
+    def max_port_load(self) -> np.ndarray:
+        """rho_m = max_p rho_{m,p}, shape (M,)."""
+        rho, _ = self.port_stats()
+        return rho.max(axis=1)
+
+    def global_lower_bound(self) -> np.ndarray:
+        """Allocation-independent single-coflow LB of [31]: delta + rho_m/R."""
+        return self.delta + self.max_port_load() / self.aggregate_rate
+
 
 def flows_of(demand: np.ndarray):
     """Nonzero flows (i, j, d) of one demand matrix, largest first.

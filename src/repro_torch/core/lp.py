@@ -258,10 +258,12 @@ def global_lower_bound(
     instance: CoflowInstance, rho: torch.Tensor
 ) -> torch.Tensor:
     """delta + rho_m / R per coflow, f64 -- `CoflowInstance.global_lower_bound`
-    from device port stats, with the same f64 operations."""
+    from device port stats, with the same f64 operations.  R is a tensor on
+    ``rho``'s device: CUDA's division by a Python scalar multiplies by its
+    rounded reciprocal, and WSPT's order reads these bits."""
     if rho.shape[0] == 0:
         return rho.new_zeros(0)
-    return instance.delta + rho.amax(dim=1) / instance.aggregate_rate
+    return instance.delta + rho.amax(dim=1) / rho.new_tensor(instance.aggregate_rate)
 
 
 def _warm_start_Y0(weights: torch.Tensor, glb: torch.Tensor) -> torch.Tensor:

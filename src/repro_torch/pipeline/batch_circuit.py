@@ -54,6 +54,7 @@ import torch
 from repro_torch.core.allocation import Allocation
 from repro_torch.core.circuit import NOT_SCHEDULED, CoreSchedule
 from repro_torch.core.coflow import CoflowInstance
+from repro_torch.core.scheduler import _flow_priorities
 from repro_torch.core.validate import ccts_from_schedules
 from repro_torch.kernels.event_resolve import event_resolve
 from repro_torch.kernels.pair_resolve import pair_resolve
@@ -90,14 +91,6 @@ def event_bound(num_flows: int) -> int:
 
 def _round_up(n: int, q: int) -> int:
     return -(-max(n, 1) // q) * q
-
-
-def _flow_priorities(alloc: Allocation, order: np.ndarray, M: int) -> np.ndarray:
-    """Priority per flow: coflow global rank, intra-coflow allocation order."""
-    pos = np.empty(M, dtype=np.int64)
-    pos[order] = np.arange(M)
-    F = alloc.num_flows()
-    return pos[alloc.coflow].astype(np.float64) * (F + 1) + np.arange(F)
 
 
 def member_tables(

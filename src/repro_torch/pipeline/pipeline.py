@@ -1,18 +1,22 @@
 """The stage-composed scheduling pipeline and its builders.
 
-Port of `repro.pipeline.pipeline` for the ``ours`` scheme.
-`Pipeline.run_batch` packs the instance list once into an `EnsembleBatch`
-on the device, and ordering (`order_batch`), allocation
-(`allocate_batch_arrays`) and circuit scheduling (`schedule_batch_arrays`)
-hand padded tensors to each other; per-instance `ScheduleResult`s are
-materialized at the end.  LP solutions are supplied by the caller (from
+Port of `repro.pipeline.pipeline`.  `Pipeline.run_batch` packs the
+instance list once into an `EnsembleBatch` on the device; ordering
+(`order_batch`), allocation (`allocate_batch_arrays`) and, for list
+circuits, circuit scheduling (`schedule_batch_arrays`) hand padded tensors
+to each other, and per-instance `ScheduleResult`s are materialized at the
+end.  Circuit stages with no batched form (sequential, BvN, fluid) schedule
+each instance on the host from its materialized allocation.  An order stage
+that needs the LP reads the caller's solutions (from
 `repro_torch.experiments.solve_ensemble_lp`) or, where one is missing,
-solved per instance by the order stage.  `Pipeline.run` is one instance
-through the same path: its allocation and calendar run on a one-member
-batch, which the reference holds bit-identical to its per-instance loop.
+solves per instance; one that needs none (WSPT, FIFO) reads none and
+records ``lp=None``.  `Pipeline.run` is one instance through the same
+path: a one-member batch, which the reference holds bit-identical to its
+per-instance loop.
 
-Not ported yet: ``stage_cache``, ``mesh`` sharding and ``refine`` (later
-slices); the methods take no such argument.
+Not ported yet: ``stage_cache``, ``mesh`` sharding, ``refine`` and the
+``circuit_backend`` switch (later slices); the methods take no such
+argument.
 """
 
 from __future__ import annotations
@@ -72,11 +76,14 @@ class Pipeline:
         """Run a whole ensemble as one tensor pipeline on ``device``.
 
         ``lp_solutions`` holds one ordering-LP solution per instance (the
-        output of `solve_ensemble_lp`); a missing one (``None``, or no list
-        at all) is solved per instance by the order stage.  With
-        ``validate`` every schedule is checked by `validate_schedule`.
-        Each result's ``wall_time_s`` is its share of the batched
-        allocation and circuit stages.
+        output of `solve_ensemble_lp`); for an order stage that needs the
+        LP, a missing one (``None``, or no list at all) is solved per
+        instance by the stage.  An order stage that needs no LP (WSPT,
+        FIFO) ignores them and every result records ``lp=None``.  With
+        ``validate`` every kept schedule is checked by `validate_schedule`
+        (BvN and fluid stages keep none).  Each result's ``wall_time_s`` is
+        its share of the batched allocation plus its own host schedule's
+        time, or its share of the batched calendar.
         """
         device = resolve_device(device)
         instances = list(instances)
@@ -86,46 +93,85 @@ class Pipeline:
             raise ValueError("lp_solutions length mismatch")
         if B == 0:
             return []
-        lp_solutions = [
-            self.order_stage.order(inst, sol, device=device)[1]
-            for inst, sol in zip(instances, lp_solutions)
-        ]
         ensemble = build_ensemble_batch(instances, device=device)
         Ms = ensemble.num_coflows
-
-        comp = np.zeros(tuple(ensemble.weights.shape))
-        for b, sol in enumerate(lp_solutions):
-            comp[b, : Ms[b]] = sol.completion
-        orders_arr = self.order_stage.order_batch(
-            ensemble, torch.from_numpy(comp).to(ensemble.device)
-        )
+        if self.order_stage.needs_lp:
+            lp_solutions = [
+                self.order_stage.order(inst, sol, device=device)[1]
+                for inst, sol in zip(instances, lp_solutions)
+            ]
+            comp = np.zeros(tuple(ensemble.weights.shape))
+            for b, sol in enumerate(lp_solutions):
+                comp[b, : Ms[b]] = sol.completion
+            orders_arr = self.order_stage.order_batch(
+                ensemble, torch.from_numpy(comp).to(ensemble.device)
+            )
+        else:
+            lp_solutions = [None] * B
+            orders_arr = self.order_stage.order_batch(ensemble)
         t0 = time.perf_counter()
         alloc_batch = self.allocate_stage.allocate_batch_arrays(ensemble, orders_arr)
         allocs = alloc_batch.materialize(ensemble)
-        pairs = self.circuit_stage.schedule_batch_arrays(ensemble, alloc_batch)
-        share = (time.perf_counter() - t0) / B
         orders_host = orders_arr.cpu().numpy()
+        orders = [orders_host[b, : Ms[b]] for b in range(B)]
+        alloc_share = (time.perf_counter() - t0) / B
+
+        # Circuit: the batched calendar, or (stages with no batched form)
+        # one host schedule per instance, each timed on its own.
+        t1 = time.perf_counter()
+        per_instance_s = None
+        batch_fn = getattr(self.circuit_stage, "schedule_batch_arrays", None)
+        if batch_fn is not None:
+            pairs = batch_fn(ensemble, alloc_batch)
+        else:
+            pairs, per_instance_s = [], []
+            for inst, alloc, order in zip(instances, allocs, orders):
+                t2 = time.perf_counter()
+                pairs.append(self.circuit_stage.schedule(inst, alloc, order))
+                per_instance_s.append(time.perf_counter() - t2)
+        circuit_share = (time.perf_counter() - t1) / B
 
         results = []
         for b, (inst, lp_sol, alloc) in enumerate(
             zip(instances, lp_solutions, allocs)
         ):
             schedules, ccts = pairs[b]
-            if validate:
+            if validate and schedules is not None:
                 validate_schedule(inst, schedules)
+            wall = alloc_share + (
+                per_instance_s[b] if per_instance_s is not None else circuit_share
+            )
             results.append(
                 ScheduleResult(
                     scheme=self.spec.name,
-                    order=orders_host[b, : Ms[b]],
+                    order=orders[b],
                     allocation=alloc,
                     core_schedules=schedules,
                     ccts=ccts,
                     total_weighted_cct=total_weighted_cct(inst, ccts),
                     lp=lp_sol,
-                    wall_time_s=share,
+                    wall_time_s=wall,
                 )
             )
         return results
+
+
+# ---------------------------------------------------------------------------
+# Spec -> stages
+# ---------------------------------------------------------------------------
+
+_ORDER_STAGES = {
+    "lp": lambda lp_method, lp_iters: st.LPOrder(lp_method, lp_iters),
+    "wspt": lambda lp_method, lp_iters: st.WsptOrder(),
+    "fifo": lambda lp_method, lp_iters: st.FifoOrder(),
+}
+
+_CIRCUIT_STAGES = {
+    "list": lambda discipline, engine: st.ListCircuit(discipline, engine),
+    "sequential": lambda discipline, engine: st.SequentialCircuit(),
+    "bvn": lambda discipline, engine: st.BvnCircuit(),
+    "fluid": lambda discipline, engine: st.FluidCircuit(),
+}
 
 
 def build_pipeline(
@@ -141,19 +187,24 @@ def build_pipeline(
     ``discipline`` applies to list-scheduler circuits whose spec leaves it
     open (the spec's own pin wins); ``lp_method`` (``"exact"`` or
     ``"subgradient"``) and ``lp_iters`` configure the LP order stage when
-    it has to solve for itself; ``circuit_engine`` picks the calendar
-    executor, ``"kernel"`` (pair space) or ``"jax"`` (flow space).  The
-    reference's ``"wide"`` and ``"auto"`` are not ported and raise.
+    it has to solve for itself; ``circuit_engine`` picks the list
+    scheduler's calendar executor, ``"kernel"`` (pair space) or ``"jax"``
+    (flow space).  The reference's ``"wide"`` and ``"auto"`` are not
+    ported and raise.  Stages without a batched form ignore both.
     """
-    if spec.order != "lp":
-        raise ValueError(f"order stage kind {spec.order!r} is not ported")
-    if spec.circuit != "list":
-        raise ValueError(f"circuit stage kind {spec.circuit!r} is not ported")
+    try:
+        order_stage = _ORDER_STAGES[spec.order](lp_method, lp_iters)
+    except KeyError:
+        raise ValueError(f"unknown order stage kind {spec.order!r}") from None
+    try:
+        make_circuit = _CIRCUIT_STAGES[spec.circuit]
+    except KeyError:
+        raise ValueError(f"unknown circuit stage kind {spec.circuit!r}") from None
     return Pipeline(
         spec=spec,
-        order_stage=st.LPOrder(lp_method, lp_iters),
+        order_stage=order_stage,
         allocate_stage=st.GreedyAllocate(include_tau=spec.include_tau),
-        circuit_stage=st.ListCircuit(spec.discipline or discipline, circuit_engine),
+        circuit_stage=make_circuit(spec.discipline or discipline, circuit_engine),
     )
 
 

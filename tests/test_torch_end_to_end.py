@@ -19,7 +19,7 @@ from repro.traffic.instances import random_instance, sample_instance
 from repro_torch.convert import from_reference
 from repro_torch.core.validate import validate_schedule
 from repro_torch.experiments import solve_ensemble_lp
-from repro_torch.pipeline import get_pipeline, list_schemes
+from repro_torch.pipeline import PAPER_SCHEMES, get_pipeline, list_schemes
 
 # The suite runs several worker processes on few cores: one intra-op
 # thread each keeps PyTorch's small CPU ops from oversubscribing them.
@@ -85,7 +85,7 @@ def test_run_batch_needs_lp_solutions(ensemble):
     with pytest.raises(ValueError, match="length mismatch"):
         pipe.run_batch(insts, [from_reference(s, "cpu") for s in sols[:-1]], device="cpu")
     assert pipe.run_batch([], [], device="cpu") == []
-    assert list_schemes() == ("ours",)
+    assert list_schemes() == PAPER_SCHEMES + ("eps",)
 
 
 def test_run_batch_solves_missing_lp_solutions(ensemble):

@@ -50,7 +50,8 @@ def test_new_modules_are_checked():
     serving path (configs, models, flash kernel, serve), the flow-space
     calendar's kernel, xLSTM (config, blocks, mLSTM kernel) and the
     training path (quant kernels, compression, AdamW, data, steps, train)
-    are among the files the syntax check reads."""
+    and the baselines' oracles and stages (BvN, EPS, allocation, circuit,
+    scheduler, stages) are among the files the syntax check reads."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in (
         "core/lp.py", "core/ordering.py", "core/lower_bounds.py", "core/theory.py",
@@ -60,6 +61,8 @@ def test_new_modules_are_checked():
         "configs/xlstm_1_3b.py", "models/xlstm.py", "kernels/mlstm_chunk.py",
         "kernels/quant.py", "runtime/compression.py", "optim/adamw.py",
         "data/pipeline.py", "launch/steps.py", "launch/train.py", "tree.py",
+        "core/bvn.py", "core/eps.py", "core/allocation.py", "core/circuit.py",
+        "core/scheduler.py", "pipeline/stages.py",
     ):
         assert f"src/repro_torch/{mod}" in names
 
@@ -72,7 +75,8 @@ def test_import_loads_no_jax():
         "repro_torch.configs, repro_torch.models, repro_torch.models.xlstm, "
         "repro_torch.kernels.mlstm_chunk, repro_torch.launch.serve, "
         "repro_torch.kernels.quant, repro_torch.runtime.compression, "
-        "repro_torch.optim, repro_torch.data.pipeline, repro_torch.launch.train; "
+        "repro_torch.optim, repro_torch.data.pipeline, repro_torch.launch.train, "
+        "repro_torch.core.bvn, repro_torch.core.eps; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
