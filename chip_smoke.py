@@ -109,8 +109,12 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    decode on each route with both bounds (tensor-core and f32-rate);
 8. training ``gemma3-1b`` at full width through
    ``repro_torch.launch.train.main`` (``--full-config --compress-grads
-   --batch 4 --seq 1024 --steps 3``: past the 512 window, two loss chunks
-   of 512; f32 masters; random weights from a seed): every loss finite,
+   --batch 4 --seq 1024 --steps 3 --plan-collectives``: past the 512
+   window, two loss chunks of 512; f32 masters; random weights from a
+   seed): the collective plan over the parameter tree's 16 MB buckets
+   covers every bucket, schedules every flow once, is no worse than FIFO
+   and equals ``plan(..., device="cpu")`` (its calendar launches
+   `pair_resolve` once per round, its build `port_stats` once); every loss finite,
    every one of the 236 parameter leaves gets a finite, nonzero gradient
    on the card (attention's backward included), the new error feedback
    within one quantization step of its row's scale (plus f32 rounding,
@@ -140,7 +144,27 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    ``load_only`` > 0.95, ``wspt_order`` < 1.3); then ``eps`` through
    `run_eps` on four paper-default instances with delta = 0 and the exact
    LP: within 4H (+1), card equal to host, and delta > 0 refused;
-10. the ``kernels`` JSON line, then ``{"ok": true, "device": ...}`` last.
+10. ``ours_ls`` (Algorithm 1 + batched candidate-search refinement, the
+   `RefineSpec` defaults: 2 rounds of 8 candidates, 256 expanded members)
+   through ``get_pipeline("ours_ls", circuit_engine=e).run_batch(...,
+   require_batch=True)`` on the 32 paper-default instances with phase 3's
+   LP solutions, ``e`` the pair and then the flow calendar, each counted
+   alone: the search ran batched, kept schedules validate, every weighted
+   CCT is at most ours' and (8K+1) x its LP objective, both engines give
+   the same bits, the round kernel launched once per calendar round and
+   `port_stats` once (the expansion is a gather); each round's
+   evaluations, instances improved, mean refined / ours ratio and stage
+   seconds, and one profiled round's device busy time; card equal to host
+   on the 8 trace instances, and to `refine_sequential` through the host's
+   per-instance stages on 4 paper instances.  Then the calendar's other
+   executors against phase 3's bits: ``engine="wide"`` (host NumPy) on
+   phase 3's allocation with no calendar kernel launched, ``"auto"``
+   resolving to ``"kernel"`` on the card and, with
+   ``REPRO_CIRCUIT_ENGINE=jax``, running the flow calendar, and ``ours``
+   under ``circuit_backend="loop"``;
+11. the ``kernels`` JSON line (the calendar kernels' and `port_stats`'
+   launches summed over phases 3, 8 and 10), then ``{"ok": true,
+   "device": ...}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero as well without a CUDA device.
@@ -207,22 +231,34 @@ def bound_ms(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_device(torch, fn):
+def profile_device(torch, fn, cpu: bool = True):
     """Run ``fn()`` under `torch.profiler`; return the wall seconds and,
-    per device kernel name, (total device microseconds, launches)."""
+    per device kernel name, (total device microseconds, launches).
+    ``cpu=False`` records device activity only and sums the trace's raw
+    device events, building no host event tree: the same sums, without the
+    tree that makes a window of tens of thousands of kernels slow to
+    summarize."""
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = {
-        e.key: (e.self_device_time_total, e.count)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    }
+    cuda = torch.autograd.DeviceType.CUDA
+    if cpu:
+        return wall, {
+            e.key: (e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == cuda
+        }
+    kernels = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            us, n = kernels.get(e.name(), (0.0, 0))
+            kernels[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
     return wall, kernels
 
 
@@ -1299,14 +1335,15 @@ def stage_times(torch, label, instances):
     log(f"{label} calendar seconds in turns (kernel, jax, jax, kernel): "
         + ", ".join(f"{t:.4f}" for t in turns))
 
-    # A traced pass: device busy share per stage (the LP at 100 steps).
+    # A traced pass: device busy share per stage (the LP at 100 steps),
+    # device activity only (tens of thousands of kernels a window).
     traced = dict(
         lp_100_steps=lambda: lp.solve_subgradient_batch_arrays(arrays, iters=100),
         allocation=lambda: pipe.allocate_stage.allocate_batch_arrays(ens, orders),
         **calendars,
     )
     for name, fn in traced.items():
-        wall, kernels = profile_device(torch, fn)
+        wall, kernels = profile_device(torch, fn, cpu=False)
         if not kernels:
             log(f"{label} traced {name}: device busy share not measured "
                 f"(the profiler saw no device activity)")
@@ -1854,7 +1891,7 @@ def phase_serving_xlstm(torch):
 # ---------------------------------------------------------------------------
 
 TRAIN_ARGV = ["--arch", "gemma3-1b", "--full-config", "--compress-grads", "--batch", "4",
-              "--seq", "1024", "--steps", "3", "--log-every", "1"]
+              "--seq", "1024", "--steps", "3", "--log-every", "1", "--plan-collectives"]
 # One quantization step of the row's scale, plus the f32 roundings of
 # x / scale, of + noise, of q * scale and of the residual: at |x / scale|
 # up to 127 each is at most 2**-18 of the scale (PERF.md, section 6).
@@ -1872,13 +1909,46 @@ def row_scales(torch, g32):
     return torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-30), rows
 
 
+def check_plan(torch, params, cplan):
+    """The trainer's collective plan: it covers every bucket of the
+    parameter tree, schedules every flow once, ships the better of ours and
+    FIFO, and equals `plan(..., device="cpu")` on the same buckets."""
+    from repro_torch.collectives.planner import buckets_from_params, plan
+
+    buckets = buckets_from_params(params, bucket_bytes=16 << 20)
+    names = {b.name for b in buckets}
+    check(cplan is not None and set(cplan.order) == names and len(cplan.order) == len(names),
+          "train --plan-collectives: the plan does not cover every bucket")
+    n_flows = sum(len(v) for v in cplan.plane_of_flow.values())
+    check(n_flows == int((cplan.instance.demands > 0).sum()),
+          f"train --plan-collectives: {n_flows} flows scheduled, "
+          f"{int((cplan.instance.demands > 0).sum())} in the instance")
+    check(cplan.chosen_weighted <= cplan.total_weighted_fifo,
+          "train --plan-collectives: the chosen plan is worse than FIFO")
+    t0 = time.perf_counter()
+    host = plan(buckets, num_pods=2, device="cpu")
+    host_s = time.perf_counter() - t0
+    same = (host.order == cplan.order and host.plane_of_flow == cplan.plane_of_flow
+            and all(getattr(host, f) == getattr(cplan, f) for f in (
+                "cct_ours", "cct_fifo", "total_weighted_ours", "total_weighted_fifo", "chosen")))
+    check(same, "train --plan-collectives: the card's plan differs from plan(device='cpu')")
+    log(f"planner: {len(buckets)} gradient buckets of 16 MB over 2 pods x 4 planes, "
+        f"{n_flows} flows each scheduled once; weighted CCT ours "
+        f"{cplan.total_weighted_ours:.6f} vs FIFO {cplan.total_weighted_fifo:.6f}, chosen "
+        f"{cplan.chosen}; CCT ours {cplan.cct_ours:.6f} ms vs FIFO {cplan.cct_fifo:.6f} ms; "
+        f"the same plan from plan(device='cpu') ({host_s:.4f} s on the host)")
+
+
 def phase_training(torch):
     """``repro_torch.launch.train.main`` on gemma3-1b at full width with
-    ``--compress-grads``: launch counts, gradients on every leaf, the error
-    feedback within one quantization step; timings, the exchange's share
-    and peak memory; one more step profiled; then card against host on a
-    reduced f32 gemma3 with the same host-drawn noise."""
+    ``--compress-grads --plan-collectives``: the collective plan
+    (`check_plan`; the planner's calendar launches `pair_resolve` once per
+    round); launch counts, gradients on every leaf, the error feedback
+    within one quantization step; timings, the exchange's share and peak
+    memory; one more step profiled; then card against host on a reduced
+    f32 gemma3 with the same host-drawn noise."""
     from repro_torch import tree
+    from repro_torch.pipeline import batch_circuit
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import SyntheticTokens, make_batch_iterator
     from repro_torch.launch import train as T
@@ -1925,10 +1995,14 @@ def phase_training(torch):
     check(all(np.isfinite(res.losses)), f"train: losses {res.losses}")
     want = dict(quantize=steps * leaves, dequantize=2 * steps * leaves,
                 flash_attention=steps * cfg.num_layers)
-    for name, n in want.items():
+    # The planner: one ensemble build (one port count) and its calendar.
+    planner = dict(port_stats=1, pair_resolve=batch_circuit.ROUNDS["kernel"])
+    check(planner["pair_resolve"] > 0, "train: the planner ran no calendar round")
+    for name, n in {**want, **planner}.items():
         check(counts[name] == n, f"train: {name} launched {counts[name]} times, expected {n}")
-    others = {k: v for k, v in counts.items() if k not in want}
+    others = {k: v for k, v in counts.items() if k not in want and k not in planner}
     check(not any(others.values()), f"train: other kernels launched {others}")
+    check_plan(torch, res.params, res.plan)
     batch, seq = 4, 1024
     log(f"training {cfg.name} (full width, {leaves} leaves, f32 masters), batch {batch} x "
         f"{seq} tokens, {steps} compressed steps in {wall:.3f} s (init and data included)")
@@ -1938,7 +2012,8 @@ def phase_training(torch):
             f"{1e3 * ex:.3f} ms ({100 * ex / dt:.1f} % of the step)")
     log(f"training {cfg.name}: launches {json.dumps(counts)} (quantize = {steps} steps x "
         f"{leaves} leaves, dequantize twice that, flash_attention = {steps} x "
-        f"{cfg.num_layers} layers); peak device memory {peak / 1e9:.3f} GB "
+        f"{cfg.num_layers} layers; the planner's port_stats 1 and pair_resolve = its "
+        f"{planner['pair_resolve']} calendar rounds); peak device memory {peak / 1e9:.3f} GB "
         f"(torch.cuda.max_memory_allocated, the checks' temporaries left out); every "
         f"leaf's gradient finite and nonzero; "
         f"error feedback at most {seen['worst_ef']:.7f} quantization steps (bound {EF_BOUND})")
@@ -2189,6 +2264,265 @@ def phase_eps(torch, seeds, positive, positive_sol):
         f"delta > 0 refused; {time.perf_counter() - t0:.2f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: ours_ls, the calendar's other executors
+# ---------------------------------------------------------------------------
+
+
+def lp_orders(torch, pipe, ens, sols):
+    """(B, Mp) LP orders of ``pipe``'s order stage on the card's ``ens``."""
+    comp = np.zeros(tuple(ens.weights.shape))
+    for b, s in enumerate(sols):
+        comp[b, : s.completion.shape[0]] = s.completion
+    return pipe.order_stage.order_batch(ens, torch.from_numpy(comp).cuda())
+
+
+def refine_stage_timers(torch, pipe):
+    """Wrap ``pipe``'s array stages (allocation, the lean CCTs) in
+    synchronized host-clock timers; returns the list each call appends
+    ``(stage, members, seconds, output)`` to."""
+    calls = []
+    for stage, attr in ((pipe.allocate_stage, "allocate_batch_arrays"),
+                        (pipe.circuit_stage, "cct_batch_arrays")):
+        def timed(ens, arg, _fn=getattr(stage, attr), _name=attr):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _fn(ens, arg)
+            torch.cuda.synchronize()
+            calls.append((_name, ens.num_instances, time.perf_counter() - t0, out))
+            return out
+
+        setattr(stage, attr, timed)
+    return calls
+
+
+def refine_rounds(calls, instances, k, ours_obj, outcome):
+    """Per-round figures of a batched search from its recorded CCT passes:
+    candidate evaluations, instances improved, the mean refined / ours
+    ratio after the round and the round's stage seconds.  The incumbents
+    it replays must end at the outcome's objectives."""
+    from repro_torch.core.localsearch import select_candidate
+
+    rows, active = [], list(range(len(instances)))
+    cur = np.array([np.nan] * len(instances))
+    ccts = [c for c in calls if c[0] == "cct_batch_arrays"]
+    allocs = [c for c in calls if c[0] == "allocate_batch_arrays" and c[1] == len(instances) * k]
+    for (_, _, cal_s, cct), (_, _, alloc_s, _) in zip(ccts, allocs):
+        improved = []
+        for b in active:
+            M, w = instances[b].num_coflows, instances[b].weights
+            objs = np.array([float(np.dot(w, cct[b * k + c, :M])) for c in range(k)])
+            win = select_candidate(objs)
+            cur[b] = objs[win]
+            if win:
+                improved.append(b)
+        rows.append(dict(evaluations=k * len(active), improved=len(improved),
+                         mean_ratio=float(np.mean(cur / ours_obj)),
+                         allocation_s=alloc_s, calendar_s=cal_s))
+        active = improved
+    check(np.array_equal(cur, outcome.objective),
+          "refinement rounds replayed from the recorded CCTs end elsewhere than "
+          "the outcome's objectives")
+    return rows
+
+
+def check_ours_ls(label, instances, sols, results, ours_results):
+    """``ours_ls`` results: finite CCTs, never worse than ``ours``, within
+    (8K+1) x the LP objective."""
+    for b, (inst, sol, r, o) in enumerate(zip(instances, sols, results, ours_results)):
+        check(np.isfinite(r.ccts).all() and r.ccts.shape == (inst.num_coflows,),
+              f"{label} instance {b}: bad CCT vector")
+        check(r.total_weighted_cct <= o.total_weighted_cct,
+              f"{label} instance {b}: weighted CCT {r.total_weighted_cct} worse than "
+              f"ours' {o.total_weighted_cct}")
+        check(r.total_weighted_cct <= (8 * inst.num_cores + 1) * sol.objective,
+              f"{label} instance {b}: weighted CCT beyond (8K+1) x LP")
+
+
+def phase_refine(torch, instances, sols, ours_results, trace, trace_sols, trace_ours):
+    """``ours_ls`` through ``get_pipeline("ours_ls").run_batch(...,
+    require_batch=True)`` on the card, under the pair and then the flow
+    calendar, each counted alone: the batched search ran, kept schedules
+    validate, each weighted CCT is at most ours' (phase 3) and (8K+1) x
+    its LP objective, both engines give the same bits, and the round
+    kernel launched once per calendar round; the rounds logged (evaluations,
+    instances improved, mean refined / ours ratio, stage seconds) and one
+    profiled round's device busy time; card equal to host on the trace
+    instances, and to `refine_sequential` through the host's per-instance
+    stages (the ``"loop"`` backend) on four paper instances."""
+    from repro_torch.core.scheduler import total_weighted_cct
+    from repro_torch.pipeline import batch_circuit, build_ensemble_batch, get_pipeline
+    from repro_torch.pipeline.refine import refine_batch_arrays
+    from repro_torch.pipeline.spec import RefineSpec
+
+    spec = RefineSpec()
+    k = spec.candidates
+    ours_obj = np.array([r.total_weighted_cct for r in ours_results])
+    results, launches = {}, {}
+    for engine, kernel in (("kernel", "pair_resolve"), ("jax", "event_resolve")):
+        pipe = get_pipeline("ours_ls", circuit_engine=engine)
+        calls = refine_stage_timers(torch, pipe) if engine == "kernel" else []
+        cache = {}
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = results[engine] = pipe.run_batch(instances, sols, validate=True,
+                                               require_batch=True, stage_cache=cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches[engine] = read_counts()
+        rounds = batch_circuit.ROUNDS[engine]
+        (outcome,) = [v for key, v in cache.items() if isinstance(key, tuple) and key[0] == "refine"]
+        check(outcome.batched, f"ours_ls {engine}: the search left the batched path")
+        check_ours_ls(f"ours_ls {engine}", instances, sols, res, ours_results)
+        check(counts[kernel] == rounds > 0,
+              f"ours_ls {engine}: {kernel} launched {counts[kernel]} times, expected "
+              f"{rounds} (one per calendar round)")
+        other = "event_resolve" if kernel == "pair_resolve" else "pair_resolve"
+        check(counts[other] == 0, f"ours_ls {engine}: {other} launched {counts[other]} times")
+        check(counts["port_stats"] == len({i.num_ports for i in instances}),
+              f"ours_ls {engine}: port_stats launched {counts['port_stats']} times "
+              f"(expand_members must not rebuild)")
+        check(counts["lp_terms_batch"] == counts["lp_terms"] == 0,
+              f"ours_ls {engine}: LP kernels launched with the LP solutions given")
+        ratios = np.array([r.total_weighted_cct for r in res]) / ours_obj
+        log(f"ours_ls paper default {engine} engine: {len(instances)} instances x {k} "
+            f"candidates = {len(instances) * k} expanded members, {outcome.rounds} rounds, "
+            f"{outcome.evaluations} evaluations, {int(outcome.improved.sum())} improved; "
+            f"weighted CCT / ours mean {ratios.mean():.4f} min {ratios.min():.4f}; "
+            f"validated, <= ours and <= (8K+1) x LP; run_batch {wall:.4f} s; "
+            f"launches {json.dumps(counts)} ({kernel} = {rounds} calendar rounds)")
+        if calls:
+            for i, row in enumerate(refine_rounds(calls, instances, k, ours_obj, outcome)):
+                log(f"ours_ls refinement round {i}: {row['evaluations']} candidate "
+                    f"evaluations, {row['improved']} instances improved, mean refined / "
+                    f"ours {row['mean_ratio']:.6f}; allocation {row['allocation_s']:.4f} s, "
+                    f"calendar (lean CCTs) {row['calendar_s']:.4f} s")
+    for b, (a, c) in enumerate(zip(results["kernel"], results["jax"])):
+        check_same_schedule(f"ours_ls kernel vs jax engine instance {b}", a, c)
+    log("ours_ls: the pair and the flow engine give the same bits (orders, cores, "
+        "establish/complete, CCTs)")
+
+    # One refinement round profiled: device busy against its wall.
+    ens = build_ensemble_batch(instances)
+    pipe = get_pipeline("ours_ls")
+    orders = lp_orders(torch, pipe, ens, sols)
+    t0 = time.perf_counter()
+    wall, kernels = profile_device(torch, lambda: refine_batch_arrays(
+        ens, orders, RefineSpec(rounds=1), alloc_fn=pipe.allocate_stage.allocate_batch_arrays,
+        cct_fn=pipe.circuit_stage.cct_batch_arrays), cpu=False)
+    profile_s = time.perf_counter() - t0
+    if kernels:
+        busy = sum(t for t, _ in kernels.values())
+        pr_us, pr_n = (sum(v[i] for key, v in kernels.items() if "pair_resolve" in key)
+                       for i in (0, 1))
+        log(f"ours_ls one profiled round ({len(instances) * k} members): wall {wall:.4f} s, "
+            f"device busy {busy / 1e6:.4f} s ({100 * busy / 1e6 / wall:.1f} %), "
+            f"{sum(c for _, c in kernels.values())} device kernels, pair_resolve "
+            f"{pr_us / 1e3:.3f} ms x{pr_n}; {profile_s:.2f} s with the profiler's summary")
+    else:
+        log("ours_ls profiled round: device busy share not measured (the profiler saw "
+            "no device activity)")
+
+    # Card against host: the 8 trace-release instances.
+    pipe = get_pipeline("ours_ls")
+    reset_counts()
+    t0 = time.perf_counter()
+    card = pipe.run_batch(trace, trace_sols, require_batch=True)
+    card_s = time.perf_counter() - t0
+    trace_counts = read_counts()
+    check(trace_counts["pair_resolve"] == batch_circuit.ROUNDS["kernel"] > 0,
+          f"ours_ls trace: pair_resolve launched {trace_counts['pair_resolve']} times")
+    check_ours_ls("ours_ls trace", trace, trace_sols, card, trace_ours)
+    t0 = time.perf_counter()
+    host = pipe.run_batch(trace, trace_sols, device="cpu")
+    host_s = time.perf_counter() - t0
+    for b, (g, c) in enumerate(zip(card, host)):
+        check_same_schedule(f"ours_ls trace GPU vs CPU instance {b}", g, c)
+    log(f"ours_ls trace releases: {len(trace)} instances, card and host bit-identical "
+        f"(run_batch {card_s:.4f} s on the card, {host_s:.4f} s on the host)")
+
+    # The per-instance oracle: refine_sequential through the host's stages.
+    t0 = time.perf_counter()
+    loop = get_pipeline("ours_ls", circuit_backend="loop").run_batch(
+        instances[:4], sols[:4], device="cpu")
+    loop_s = time.perf_counter() - t0
+    for b, (g, c) in enumerate(zip(results["kernel"], loop)):
+        check_same_schedule(f"ours_ls card vs refine_sequential (host loop) instance {b}", g, c)
+        check(total_weighted_cct(instances[b], c.ccts) == g.total_weighted_cct,
+              f"ours_ls instance {b}: objectives differ")
+    log(f"ours_ls: the card's first 4 instances equal refine_sequential through the host's "
+        f"per-instance stages ({loop_s:.4f} s)")
+    launches["trace"] = trace_counts
+    return launches
+
+
+def phase_engines(torch, instances, sols, ours_results):
+    """The executors besides the card's calendars, against phase 3's
+    greedy bits: ``engine="wide"`` (host NumPy) on phase 3's allocation,
+    launching no calendar kernel; ``"auto"`` resolving to ``"kernel"`` on
+    the card, and with ``REPRO_CIRCUIT_ENGINE=jax`` running the flow
+    calendar; ``ours`` under ``circuit_backend="loop"``."""
+    import os
+
+    from repro_torch.pipeline import batch_circuit, build_ensemble_batch, get_pipeline
+
+    ens = build_ensemble_batch(instances)
+    pipe = get_pipeline("ours")
+    alloc = pipe.allocate_stage.allocate_batch_arrays(ens, lp_orders(torch, pipe, ens, sols))
+    reset_counts()
+    t0 = time.perf_counter()
+    wide = batch_circuit.schedule_batch_arrays(ens, alloc, discipline="greedy", engine="wide")
+    wide_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["pair_resolve"] == counts["event_resolve"] == 0,
+          f"wide engine launched calendar kernels: {counts}")
+    for b, ((scheds, ccts), want) in enumerate(zip(wide, ours_results)):
+        for c, (x, y) in enumerate(zip(scheds, want.core_schedules)):
+            check(np.array_equal(x.establish, y.establish) and np.array_equal(x.complete, y.complete),
+                  f"wide engine instance {b} core {c}: times differ from phase 3's")
+        check(np.array_equal(ccts, want.ccts), f"wide engine instance {b}: CCTs differ")
+    log(f"engine wide (host NumPy) on phase 3's allocation: {len(instances)} instances "
+        f"bit-identical to the card's kernel engine, no calendar kernel launched, "
+        f"{wide_s:.4f} s")
+
+    check(batch_circuit.resolve_engine("auto", "cuda") == "kernel",
+          "auto does not resolve to kernel on the card")
+    old = os.environ.get("REPRO_CIRCUIT_ENGINE")
+    os.environ["REPRO_CIRCUIT_ENGINE"] = "jax"
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        auto = get_pipeline("ours", circuit_engine="auto").run_batch(instances, sols)
+        auto_s = time.perf_counter() - t0
+        counts = read_counts()
+    finally:
+        if old is None:
+            del os.environ["REPRO_CIRCUIT_ENGINE"]
+        else:
+            os.environ["REPRO_CIRCUIT_ENGINE"] = old
+    check(counts["event_resolve"] == batch_circuit.ROUNDS["jax"] > 0
+          and counts["pair_resolve"] == 0,
+          f"auto with REPRO_CIRCUIT_ENGINE=jax did not run the flow calendar: {counts}")
+    for b, (g, want) in enumerate(zip(auto, ours_results)):
+        check_same_schedule(f"auto (REPRO_CIRCUIT_ENGINE=jax) vs phase 3 instance {b}", g, want)
+    log(f"engine auto: resolves to kernel on the card; with REPRO_CIRCUIT_ENGINE=jax it ran "
+        f"the flow calendar ({counts['event_resolve']} event_resolve launches) with phase 3's "
+        f"bits, run_batch {auto_s:.4f} s")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    loop = get_pipeline("ours", circuit_backend="loop").run_batch(instances, sols)
+    loop_s = time.perf_counter() - t0
+    counts = read_counts()
+    check(counts["pair_resolve"] == counts["event_resolve"] == 0,
+          f"loop backend launched calendar kernels: {counts}")
+    for b, (g, want) in enumerate(zip(loop, ours_results)):
+        check_same_schedule(f"circuit_backend=loop vs phase 3 instance {b}", g, want)
+    log(f"circuit_backend loop: ours with phase 3's bits, no calendar kernel launched, "
+        f"run_batch {loop_s:.4f} s")
+
+
 def main() -> int:
     import torch
 
@@ -2199,6 +2533,14 @@ def main() -> int:
     from repro_torch.core.lp import pack_lp_arrays
     from repro_torch.kernels import common
     from repro_torch.traffic.instances import paper_default_instance, sample_instance
+
+    marks = [time.perf_counter()]
+
+    def lap(what):
+        """Log the seconds since the previous mark (the smoke's own clock)."""
+        marks.append(time.perf_counter())
+        log(f"smoke clock: {what} {marks[-1] - marks[-2]:.2f} s "
+            f"({marks[-1] - marks[0]:.2f} s so far)")
 
     # Phase 1: the card and the build.
     smi = subprocess.run(
@@ -2245,6 +2587,7 @@ def main() -> int:
     rows.append(phase_flash_kernel(torch))
     rows.append(phase_mlstm_kernel(torch))
     rows.extend(phase_quant_kernel(torch))
+    lap("phases 1-2 (build, kernels)")
 
     # Phases 3 and 4: the main path, then GPU/CPU parity, on both ensembles;
     # each time under the pair engine, then the flow engine counted apart.
@@ -2258,6 +2601,7 @@ def main() -> int:
     phase_flow_engine(torch, "trace releases", trace, trace_sols, trace_results,
                       trace_rounds)
     phase_parity("trace releases", trace, trace_sols)
+    lap("phases 3-4 (ensembles, parity)")
 
     # Phase 5: per-instance ours, each run solving its own LP; then the flow
     # engine on two of them.
@@ -2273,6 +2617,7 @@ def main() -> int:
                                           seed=0))],
     )
     flow_runs = phase_per_instance_flow(torch, runs, [paper_1[0], fig5[0]])
+    lap("phase 5 (per instance)")
 
     # Phase 2, the flow-space round: `event_resolve` on the calendar states
     # of the main path's bucket (the 32 paper-default schedules of phase 3),
@@ -2288,27 +2633,41 @@ def main() -> int:
     # Phase 2, the calendars on the whole trace: `pair_resolve` on real
     # pair-calendar rounds at 152 ports, and each engine's resolve share.
     phase_trace_calendars(torch, fb_full)
+    lap("phase 2 (calendar rounds)")
 
     # Phase 6: serving gemma3-1b at full width.
     serve_counts = phase_serving(torch)
+    lap("phase 6 (serving gemma3-1b)")
 
     # Phase 7: serving xlstm-1.3b at full width.
     xlstm_counts = phase_serving_xlstm(torch)
+    lap("phase 7 (serving xlstm-1.3b)")
 
     # Phase 8: training gemma3-1b at full width with compressed gradients.
     train_counts = phase_training(torch)
+    lap("phase 8 (training, planner)")
 
     # Phase 9: the paper's schemes on both ensembles with phase 3's LP
     # solutions, then EPS on four delta = 0 instances.
-    t0 = time.perf_counter()
     phase_schemes(torch, "schemes paper default", paper, sols, paper_results["greedy"])
     phase_schemes(torch, "schemes trace releases", trace, trace_sols,
                   trace_results["greedy"])
     phase_eps(torch, range(4), paper[0], sols[0])
-    log(f"phase 9 (paper schemes, eps): {time.perf_counter() - t0:.2f} s")
+    lap("phase 9 (paper schemes, eps)")
 
-    # Phase 10: the kernels line (each kernel's launches on its main path),
-    # then the result.
+    # Phase 10: ours_ls on both ensembles with phase 3's LP solutions, then
+    # the calendar's other executors against phase 3's bits.
+    refine_counts = phase_refine(torch, paper, sols, paper_results["greedy"], trace,
+                                 trace_sols, trace_results["greedy"])
+    phase_engines(torch, paper, sols, paper_results["greedy"])
+    lap("phase 10 (ours_ls, engines)")
+
+    # Phase 11: the kernels line (each kernel's launches on its main paths:
+    # the calendar kernels' and port_stats' grow by the planner's run in
+    # phase 8 and by ours_ls's runs in phase 10), then the result.
+    for name in ("pair_resolve", "port_stats"):
+        counts[name] += train_counts[name] + sum(c[name] for c in refine_counts.values())
+    flow_counts["event_resolve"] += sum(c["event_resolve"] for c in refine_counts.values())
     counts["lp_terms"] = single_counts["lp_terms"]
     counts["event_resolve"] = flow_counts["event_resolve"]
     counts["flash_attention"] = serve_counts["flash_attention"]

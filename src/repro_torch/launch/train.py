@@ -14,14 +14,20 @@ stochastic-rounding noise is the port's own stream: step ``s`` draws each
 leaf's noise in leaf order from a generator seeded from (7, s), where the
 reference folds ``s`` and the leaf index into ``PRNGKey(7)``.
 
-Not ported yet: ``--checkpoint-dir`` and ``--inject-failure`` (with the
-straggler tracker; ROADMAP.md Queue 1 item 10) and ``--plan-collectives``
-(item 6); they raise.  Without ``--full-config`` the config is reduced as
-the reference reduces it (vocabulary at most 4096).
+``--plan-collectives`` plans the gradient exchange before the first
+step, as the reference does: `repro_torch.collectives.planner` buckets the
+model's own parameter tree (16 MB buckets) and runs Algorithm 1 over two
+pods on the trainer's device; the plan is printed and kept on the result
+(`TrainResult.plan`).  The port's tree is per layer, so its buckets differ
+from those of the reference's stacked tree.  Not ported yet:
+``--checkpoint-dir`` and ``--inject-failure`` (with the straggler tracker;
+ROADMAP.md Queue 1 item 10); they raise.  Without ``--full-config`` the
+config is reduced as the reference reduces it (vocabulary at most 4096).
 
 Usage:
   python -m repro_torch.launch.train --arch gemma3-1b --full-config --compress-grads
   python -m repro_torch.launch.train --arch gemma3-1b --steps 3 --device cpu
+  python -m repro_torch.launch.train --arch gemma3-1b --steps 3 --plan-collectives --device cpu
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Any, Callable
 
 import torch
 
+from repro_torch.collectives.planner import buckets_from_params, plan
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import SyntheticTokens, make_batch_iterator
@@ -56,7 +63,8 @@ class TrainResult:
     step the loss, the gradient norm and host-clock seconds (each step
     ends with its loss read on the host), and under compression the
     seconds of the exchange (`compressed_allreduce`, synchronized before
-    and after) and the final error feedback."""
+    and after) and the final error feedback.  `main` with
+    ``--plan-collectives`` adds the `CollectivePlan`."""
 
     params: Any
     opt_state: dict
@@ -65,6 +73,7 @@ class TrainResult:
     step_s: list[float]
     exchange_s: list[float]
     error_feedback: Any
+    plan: Any = None
 
 
 def train(
@@ -173,21 +182,28 @@ def main(argv=None, *, inspect: Callable | None = None) -> TrainResult:
             "--checkpoint-dir / --inject-failure: checkpointing and failure "
             "recovery are not ported yet (ROADMAP.md, Queue 1 item 10)"
         )
-    if args.plan_collectives:
-        raise NotImplementedError(
-            "--plan-collectives: the collective planner is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6)"
-        )
     cfg = config_for(args.arch, args.full_config, args.d_model, args.layers)
     model = build_model(cfg, args.device)
     params = model.init(torch.Generator(device=model.device).manual_seed(0), masters=True)
     print(f"training {cfg.name} ({param_count(params) / 1e6:.1f}M params) on 1 "
           f"device ({model.device}), {args.steps} steps")
+    cplan = None
+    if args.plan_collectives:
+        buckets = buckets_from_params(params, bucket_bytes=16 << 20)
+        cplan = plan(buckets, num_pods=2, device=model.device)
+        print(
+            f"[planner] {len(buckets)} gradient buckets -> "
+            f"CCT ours {cplan.cct_ours:.1f} ms vs FIFO {cplan.cct_fifo:.1f} ms "
+            f"(speedup {cplan.speedup:.2f}x); issue order: "
+            + ", ".join(cplan.order[:6])
+            + ("..." if len(cplan.order) > 6 else "")
+        )
     res = train(
         cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
         microbatches=args.microbatches, compress_grads=args.compress_grads,
         log_every=args.log_every, device=model.device, params=params, inspect=inspect,
     )
+    res.plan = cplan
     print("done.")
     return res
 

@@ -1,5 +1,5 @@
 """Stage-based scheduling pipeline (port of `repro.pipeline`: the five paper
-schemes and EPS).
+schemes, EPS and ``ours_ls``).
 
   * `repro_torch.pipeline.spec` -- `SchemeSpec` and the scheme registry;
   * `repro_torch.pipeline.stages` -- the order / allocate / circuit stages
@@ -10,7 +10,10 @@ schemes and EPS).
     built once per ensemble, and the `AllocationBatch` it produces;
   * `repro_torch.pipeline.batch_alloc` / `batch_circuit` -- the device
     allocation scan and the circuit calendars (pair space,
-    ``circuit_engine="kernel"``; flow space, ``circuit_engine="jax"``).
+    ``circuit_engine="kernel"``; flow space, ``circuit_engine="jax"``; host
+    NumPy, ``circuit_engine="wide"``; ``"auto"``);
+  * `repro_torch.pipeline.refine` -- batched candidate-search refinement
+    (`RefineSpec`, ``run_batch(refine=...)``, the ``ours_ls`` scheme).
 
 Typical use::
 
@@ -28,8 +31,10 @@ from repro_torch.pipeline.ensemble_batch import (
     build_ensemble_batch,
 )
 from repro_torch.pipeline.pipeline import Pipeline, build_pipeline, get_pipeline
+from repro_torch.pipeline.refine import RefineOutcome, refine_batch_arrays, refine_sequential
 from repro_torch.pipeline.spec import (
     PAPER_SCHEMES,
+    RefineSpec,
     SchemeSpec,
     get_scheme,
     list_schemes,
@@ -47,6 +52,10 @@ __all__ = [
     "build_pipeline",
     "get_pipeline",
     "PAPER_SCHEMES",
+    "RefineSpec",
+    "RefineOutcome",
+    "refine_batch_arrays",
+    "refine_sequential",
     "SchemeSpec",
     "get_scheme",
     "list_schemes",

@@ -1,11 +1,11 @@
 """Ensemble-batched intra-core circuit scheduling (Alg. 1 Lines 16-30).
 
-Port of two of the reference's calendar executors
-(`repro.pipeline.batch_circuit`), selected by ``engine=``.  Both run the
+Port of the reference's three calendar executors
+(`repro.pipeline.batch_circuit`), selected by ``engine=``.  Two run the
 event calendar for the whole flattened (instance x core) member axis at
 once, on the device, one resolution round at a time:
 
-  * ``"kernel"`` (the default) -- the pair-space calendar.  Flows of one
+  * ``"kernel"`` -- the pair-space calendar.  Flows of one
     (ingress, egress) pair share both ports and execute sequentially, so
     only each pair's head (its first waiting flow) can claim or start.
     Every round recomputes the heads statelessly as an exclusive
@@ -28,24 +28,32 @@ zero-duration start) and run the same rounds.  Under greedy the flow
 engine also holds the clock for an idle later flow of a pair whose head
 just started, so it may run more rounds; the schedule is the same.
 
-The JAX package runs these rounds in a ``lax.while_loop``; here a Python
-loop runs them, testing on the host every `_CHECK_EVERY` rounds whether
-any member still has pending, unstalled flows, and never passing
+The third, ``"wide"``, is the reference's host NumPy pair engine
+(`_run_calendar_wide`): lockstep over the members, with per-pair head
+pointers that rewind when a release lands before them.  It launches no
+kernel and ignores the ensemble's device.  ``"auto"`` resolves from the
+device the ensemble lives on (`resolve_engine`): ``"kernel"`` on a card,
+``"wide"`` on the host, unless ``REPRO_CIRCUIT_ENGINE`` names an engine.
+
+The JAX package runs the device rounds in a ``lax.while_loop``; here a
+Python loop runs them, testing on the host every `_CHECK_EVERY` rounds
+whether any member still has pending, unstalled flows, and never passing
 `event_bound` rounds.  That is exact because a round in which a member has
 nothing waiting changes none of its state: nothing starts or frees, and
 its clock and stall flag are left alone.  All times are f64 and every
 per-round operation is a selection, a min/max or ``t + dur`` with ``dur``
 computed exactly as the oracle's ``delta + size / rate``, so establish and
 complete times are bit-identical to `repro.core.circuit.schedule_core` on
-both disciplines, under either engine.
+both disciplines, under every engine.
 
 The member tables (partition, padding and segment metadata) are built on
-the host in NumPy: they are static per call.  The reference's ``"wide"``
-host engine is not ported, and neither is ``"auto"`` (`check_engine`).
+the host in NumPy: they are static per call.  `cct_batch_arrays` is the
+lean form refinement evaluates through: the same calendar, only the CCTs.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import numpy as np
@@ -61,8 +69,8 @@ from repro_torch.kernels.pair_resolve import pair_resolve
 from repro_torch.pipeline.ensemble_batch import AllocationBatch, EnsembleBatch
 
 __all__ = [
-    "schedule_batch_arrays", "member_tables", "event_bound", "check_engine",
-    "ENGINES", "ROUNDS",
+    "schedule_batch_arrays", "cct_batch_arrays", "member_tables", "event_bound",
+    "resolve_engine", "ENGINES", "ROUNDS",
 ]
 
 # Bucket quanta of the reference: flows, ports and members round up.
@@ -73,13 +81,13 @@ _G_QUANTUM = 8
 #: Rounds between host checks for live members.
 _CHECK_EVERY = 16
 
-#: Calendar executors of the port: pair space on `pair_resolve`, flow
-#: space on `event_resolve`.
-ENGINES = ("kernel", "jax")
+#: Calendar executors: pair space on `pair_resolve`, flow space on
+#: `event_resolve`, and the host NumPy pair engine (plus ``"auto"``).
+ENGINES = ("kernel", "jax", "wide")
 
-#: Calendar rounds run so far, per engine; every round calls its kernel's
-#: wrapper (`pair_resolve` or `event_resolve`) once.
-ROUNDS = dict.fromkeys(ENGINES, 0)
+#: Calendar rounds run so far by each device engine; every round calls its
+#: kernel's wrapper (`pair_resolve` or `event_resolve`) once.
+ROUNDS = dict.fromkeys(("kernel", "jax"), 0)
 
 
 def event_bound(num_flows: int) -> int:
@@ -384,26 +392,212 @@ class _FlowCalendar(_Calendar):
         )
 
 
-#: Calendar class of each engine.
+#: Calendar class of each device engine.
 _CALENDARS = {c.engine: c for c in (_PairCalendar, _FlowCalendar)}
 
 
-def check_engine(engine: str) -> str:
-    """``engine`` if the port runs that calendar executor, else raise."""
-    if engine in ENGINES:
+def _run_calendar_wide(
+    src, dst, rel, dur, valid, num_ports, reserving, bound, labels=None
+):
+    """The ``"wide"`` engine: the padded event calendar, lockstep in host
+    NumPy (the reference's `_run_calendar_wide`).
+
+    The same round/advance semantics as the device engines, around
+    per-(ingress, egress)-pair head pointers: one round evaluates the
+    (G, N, N) candidate matrix (row/column minima reproduce
+    `resolve_event`'s first claimer per port), heads advance past started
+    and not-yet-released flows and rewind when a release lands before
+    them.  The clock may also stop at release instants whose flows then
+    turn out blocked -- no-op rounds -- so ``bound`` carries one extra F of
+    slack over `event_bound`.  Members drop out of the batch as they
+    finish.  The same f64 selections as `schedule_core`: bit-exact.
+    """
+    G, F = src.shape
+    N = int(num_ports)
+    P = N * N
+    NOT = NOT_SCHEDULED
+    out_est = np.full((G, F), NOT)
+    out_comp = np.full((G, F), NOT)
+    if G == 0 or F == 0:
+        return out_est, out_comp
+
+    pairid = np.where(valid, src.astype(np.int64) * N + dst, P)
+    psort = np.argsort(pairid, axis=1, kind="stable")
+    keys = np.take_along_axis(pairid, psort, 1)
+    pos = np.empty((G, F), dtype=np.int64)
+    np.put_along_axis(pos, psort, np.broadcast_to(np.arange(F), (G, F)), 1)
+    pairstart = np.empty((G, P), dtype=np.int64)
+    pairend = np.empty((G, P), dtype=np.int64)
+    ports = np.arange(P)
+    for g in range(G):
+        pairstart[g] = np.searchsorted(keys[g], ports, side="left")
+        pairend[g] = np.searchsorted(keys[g], ports, side="right")
+    # Release calendar per member: flows grouped by release instant; the
+    # t0 group needs no rewind (heads start at the segment fronts).
+    groups: list[list] = []
+    t0 = np.empty(G)
+    for g in range(G):
+        fids = np.nonzero(valid[g])[0]
+        if fids.size == 0:  # quantum-padded member: drops out at entry
+            groups.append([])
+            t0[g] = np.inf
+            continue
+        o = np.argsort(rel[g, fids], kind="stable")
+        fs = fids[o]
+        uniq, starts = np.unique(rel[g, fs], return_index=True)
+        bounds = list(starts) + [fs.size]
+        groups.append(
+            [(uniq[i], fs[bounds[i]:bounds[i + 1]]) for i in range(len(uniq))]
+        )
+        t0[g] = uniq[0]
+    ptr = np.ones(G, dtype=np.int64)
+    next_rel = np.array([g[1][0] if len(g) > 1 else np.inf for g in groups])
+
+    PI = ports // N  # static pair -> ingress port
+    PJ = ports % N  # static pair -> egress port
+    h = pairstart.copy()
+    free_in = np.zeros((G, N))
+    free_out = np.zeros((G, N))
+    est = np.full((G, F), NOT)
+    comp = np.full((G, F), NOT)
+    pending = valid.copy()
+    remaining = valid.sum(1)
+    t = t0
+    orig = np.arange(G)
+    it = 0
+
+    def keep(mask, arrays):
+        return tuple(a[mask] for a in arrays)
+
+    live = remaining > 0
+    if not live.all():
+        (orig, h, pairstart, pairend, psort, pos, pairid, rel, dur, pending,
+         est, comp, free_in, free_out, remaining, t, ptr, next_rel) = keep(
+            live, (orig, h, pairstart, pairend, psort, pos, pairid, rel, dur,
+                   pending, est, comp, free_in, free_out, remaining, t, ptr,
+                   next_rel))
+        groups = [grp for g, grp in enumerate(groups) if live[g]]
+
+    while orig.size:
+        it += 1
+        if it > bound:  # pragma: no cover - bound is provably large
+            who = ", ".join(
+                labels[g] if labels and g < len(labels) else f"member {g}"
+                for g in sorted(set(orig.tolist()))
+            )
+            raise RuntimeError(f"batched scheduler exceeded the event bound ({who})")
+        Ga = orig.size
+        t_ = t[:, None]
+        base = (np.arange(Ga) * F)[:, None]
+        # Head maintenance: skip started and not-yet-released flows (a
+        # release rewind restores the latter when their instant arrives).
+        while True:
+            hv = h < pairend
+            hc = np.minimum(h, F - 1)
+            c = psort.ravel()[hc + base]
+            cf = c + base
+            pend_c = pending.ravel()[cf]
+            rel_c = rel.ravel()[cf]
+            skip = hv & (~pend_c | (rel_c > t_))
+            if not skip.any():
+                break
+            h = h + skip
+        waitc = hv & (rel_c <= t_)
+        FI = free_in[:, PI]
+        FO = free_out[:, PJ]
+        idlec = waitc & (FI <= t_) & (FO <= t_)
+        claim = waitc if reserving else idlec
+        # resolve_event in pair space: claimed head ids, first claimer per
+        # ingress (row min) and egress (column min).
+        cl = np.where(claim, c, F)
+        clm = cl.reshape(Ga, N, N)
+        rowfirst = clm.min(2)
+        colfirst = clm.min(1)
+        start = idlec & (cl == rowfirst[:, PI]) & (cl == colfirst[:, PJ])
+
+        dur_c = dur.ravel()[cf]
+        end_c = t_ + dur_c
+        sm = start.reshape(Ga, N, N)
+        ev = np.where(start, end_c, -np.inf).reshape(Ga, N, N)
+        free_in = np.where(sm.any(2), ev.max(2), free_in)
+        free_out = np.where(sm.any(1), ev.max(1), free_out)
+        gs, ps = np.nonzero(start)
+        if gs.size:
+            fstart = c[gs, ps]
+            est[gs, fstart] = t[gs]
+            comp[gs, fstart] = end_c[gs, ps]
+            pending[gs, fstart] = False
+            h[gs, ps] += 1
+            remaining -= np.bincount(gs, minlength=Ga)
+        # Another round at this instant is possible only if an idle
+        # candidate was left blocked (greedy backfill) or a zero-duration
+        # start chained its pair's next flow at the same t.
+        chained = (start & (dur_c == 0.0)).any(1)
+        more = chained if reserving else chained | (idlec & ~start).any(1)
+        # Next event per pair: its ports' post-round free times (the new
+        # head's own release, if later, surfaces as a release stop).
+        hv2 = h < pairend
+        pt = np.where(hv2, np.maximum(free_in[:, PI], free_out[:, PJ]), np.inf)
+        times = np.where(pt > t_, pt, np.inf).min(1)
+        tn = np.minimum(times, np.where(next_rel > t, next_rel, np.inf))
+        adv = ~more
+        alive = remaining > 0
+        stall = adv & alive & ~np.isfinite(tn)
+        if stall.any():
+            bad = int(orig[stall][0])
+            who = labels[bad] if labels and bad < len(labels) else f"member {bad}"
+            raise RuntimeError(f"batched scheduler stalled ({who})")
+        t = np.where(adv & alive, tn, t)
+        # Release crossings: rewind heads of pairs whose newly released
+        # flows land before the current head.
+        for gi in np.nonzero(adv & alive & (next_rel <= t))[0]:
+            grp = groups[gi]
+            while ptr[gi] < len(grp) and grp[ptr[gi]][0] <= t[gi]:
+                _, flows = grp[ptr[gi]]
+                np.minimum.at(h[gi], pairid[gi, flows], pos[gi, flows])
+                ptr[gi] += 1
+            next_rel[gi] = grp[ptr[gi]][0] if ptr[gi] < len(grp) else np.inf
+        # Finished members no-op harmlessly inside the lockstep batch, so
+        # compact (array copies) only once enough of them accumulate.
+        ndone = Ga - int(alive.sum())
+        if ndone and (4 * ndone >= Ga or ndone == Ga):
+            done = ~alive
+            out_est[orig[done]] = est[done]
+            out_comp[orig[done]] = comp[done]
+            (orig, h, pairstart, pairend, psort, pos, pairid, rel, dur, pending,
+             est, comp, free_in, free_out, remaining, t, ptr, next_rel) = keep(
+                alive, (orig, h, pairstart, pairend, psort, pos, pairid, rel,
+                        dur, pending, est, comp, free_in, free_out, remaining,
+                        t, ptr, next_rel))
+            groups = [grp for g, grp in enumerate(groups) if alive[g]]
+    return out_est, out_comp
+
+
+def resolve_engine(engine: str, device: str | torch.device) -> str:
+    """The calendar executor that ``engine`` names for data on ``device``.
+
+    ``"auto"`` resolves as the reference's `_check_engine` does, with the
+    device standing in for its backend: a non-empty
+    ``REPRO_CIRCUIT_ENGINE`` names the engine (it overrides ``"auto"``
+    only, never an explicit engine), otherwise ``"kernel"`` on a CUDA
+    device and ``"wide"`` on the host.  An unknown name raises.
+    """
+    if engine not in ("auto",) + ENGINES:
+        raise ValueError(
+            f"unknown circuit engine {engine!r}; expected 'auto' or one of "
+            f"{', '.join(ENGINES)}"
+        )
+    if engine != "auto":
         return engine
-    if engine == "wide":
-        raise ValueError(
-            "circuit engine 'wide' (the reference's host NumPy calendar) is "
-            "not ported yet; the port runs 'kernel' or 'jax'"
-        )
-    if engine == "auto":
-        raise ValueError(
-            "circuit engine 'auto' is not ported: name 'kernel' or 'jax'"
-        )
-    raise ValueError(
-        f"unknown circuit engine {engine!r}; the port runs 'kernel' or 'jax'"
-    )
+    env = os.environ.get("REPRO_CIRCUIT_ENGINE", "").strip().lower()
+    if env:
+        if env not in ENGINES:
+            raise ValueError(
+                f"unknown circuit engine {env!r} (from REPRO_CIRCUIT_ENGINE; "
+                f"expected one of {', '.join(ENGINES)})"
+            )
+        return env
+    return "kernel" if torch.device(device).type == "cuda" else "wide"
 
 
 def _execute_members(
@@ -415,13 +609,21 @@ def _execute_members(
     engine: str = "kernel",
     check_every: int = _CHECK_EVERY,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Pad member tables, run the ``engine`` calendar on ``device``,
-    return the (G, Fmax) establish / complete arrays on the host."""
+    """Pad member tables and run the ``engine`` calendar (on ``device``,
+    or on the host for ``"wide"``); return the (G, Fmax) establish /
+    complete arrays on the host."""
     if discipline not in ("reserving", "greedy"):
         raise ValueError(f"unknown discipline {discipline!r}")
-    cal = _CALENDARS[check_engine(engine)](
-        _pad_members(tabs, num_ports_max), discipline == "reserving", device
-    )
+    engine = resolve_engine(engine, device)
+    pad = _pad_members(tabs, num_ports_max)
+    reserving = discipline == "reserving"
+    if engine == "wide":
+        return _run_calendar_wide(
+            pad["src"], pad["dst"], pad["rel"], pad["dur"], pad["pending"],
+            pad["Nmax"], reserving, bound=event_bound(pad["Fmax"]) + pad["Fmax"],
+            labels=list(labels),
+        )
+    cal = _CALENDARS[engine](pad, reserving, device)
     cal.run(check_every)
     s = cal.state
     unfinished = s["pending"].any(dim=1).cpu().numpy()
@@ -436,48 +638,39 @@ def _execute_members(
     return s["est"].cpu().numpy(), s["comp"].cpu().numpy()
 
 
-def schedule_batch_arrays(
-    ensemble: EnsembleBatch,
-    alloc: AllocationBatch,
-    discipline: str = "reserving",
-    engine: str = "kernel",
-) -> list[tuple[list[CoreSchedule], np.ndarray]]:
-    """Circuit-schedule straight off the padded tensors with the
-    ``engine`` calendar (``"kernel"`` or ``"jax"``).
+def _run_members(
+    ensemble: EnsembleBatch, alloc: AllocationBatch, discipline: str, engine: str
+):
+    """The calendar over every (instance, core) member with flows.
 
-    The `AllocationBatch` flow axis is already in scheduling priority
-    order, so each (instance, core) member table is a stable partition of
-    it.  Returns one ``(core_schedules, ccts)`` pair per instance.
+    Returns the host copies of ``alloc``'s flow fields, the per-core rates
+    and deltas, the ``(b, k, flow rows)`` members and the calendar's
+    (G, Fmax) establish / complete arrays (None without members).
     """
     if discipline not in ("reserving", "greedy"):
         raise ValueError(f"unknown discipline {discipline!r}")
-    check_engine(engine)
-    B = ensemble.num_instances
-    if B == 0:
-        return []
-    core = alloc.core.cpu().numpy()
-    valid = alloc.valid.cpu().numpy()
-    a_src = alloc.src.cpu().numpy()
-    a_dst = alloc.dst.cpu().numpy()
-    a_coflow = alloc.coflow.cpu().numpy()
-    a_size = alloc.size.cpu().numpy()
+    engine = resolve_engine(engine, ensemble.device)
+    if ensemble.num_instances == 0:
+        return {}, None, None, [], None, None
+    h = {f: getattr(alloc, f).cpu().numpy()
+         for f in ("core", "valid", "src", "dst", "coflow", "size")}
     releases = ensemble.releases.cpu().numpy()
     rates = ensemble.rates.cpu().numpy()
     delta = ensemble.delta.cpu().numpy()
-
     members = []  # (b, k, flow-row indices into the ordered flow axis)
-    for b in range(B):
+    for b in range(ensemble.num_instances):
         for k in range(ensemble.num_cores[b]):
-            idx = np.nonzero(valid[b] & (core[b] == k))[0]
+            idx = np.nonzero(h["valid"][b] & (h["core"][b] == k))[0]
             if idx.size:
                 members.append((b, k, idx))
+    est = comp = None
     if members:
         tabs = [
             dict(
-                src=a_src[b, idx],
-                dst=a_dst[b, idx],
-                rel=releases[b, a_coflow[b, idx]],
-                dur=delta[b] + a_size[b, idx] / rates[b, k],
+                src=h["src"][b, idx],
+                dst=h["dst"][b, idx],
+                rel=releases[b, h["coflow"][b, idx]],
+                dur=delta[b] + h["size"][b, idx] / rates[b, k],
             )
             for b, k, idx in members
         ]
@@ -489,10 +682,51 @@ def schedule_batch_arrays(
             labels=[f"instance {b}, core {k}" for b, k, _ in members],
             engine=engine,
         )
+    return h, rates, delta, members, est, comp
 
+
+def cct_batch_arrays(
+    ensemble: EnsembleBatch,
+    alloc: AllocationBatch,
+    discipline: str = "reserving",
+    engine: str = "kernel",
+) -> np.ndarray:
+    """The (B, Mp) realized CCTs straight off the padded tensors -- lean.
+
+    The evaluation path of candidate-search refinement
+    (`repro_torch.pipeline.refine`): the member tables and calendar of
+    `schedule_batch_arrays`, but no `CoreSchedule` is built.  Row ``b``'s
+    first ``num_coflows[b]`` entries equal `ccts_from_schedules` of the
+    full stage bit for bit (a max over the same completions); padded
+    entries are 0.
+    """
+    h, _, _, members, _, comp = _run_members(ensemble, alloc, discipline, engine)
+    cct = np.zeros((ensemble.num_instances, ensemble.pad_coflows))
+    for g, (b, _k, idx) in enumerate(members):
+        np.maximum.at(cct[b], h["coflow"][b, idx], comp[g, : idx.shape[0]])
+    return cct
+
+
+def schedule_batch_arrays(
+    ensemble: EnsembleBatch,
+    alloc: AllocationBatch,
+    discipline: str = "reserving",
+    engine: str = "kernel",
+) -> list[tuple[list[CoreSchedule], np.ndarray]]:
+    """Circuit-schedule straight off the padded tensors with the
+    ``engine`` calendar (``"kernel"``, ``"jax"``, ``"wide"`` or
+    ``"auto"``, see `resolve_engine`).
+
+    The `AllocationBatch` flow axis is already in scheduling priority
+    order, so each (instance, core) member table is a stable partition of
+    it.  Returns one ``(core_schedules, ccts)`` pair per instance.
+    """
+    h, rates, delta, members, est, comp = _run_members(
+        ensemble, alloc, discipline, engine
+    )
     by_member = {(b, k): g for g, (b, k, _) in enumerate(members)}
     out = []
-    for b in range(B):
+    for b in range(ensemble.num_instances):
         schedules = []
         for k in range(ensemble.num_cores[b]):
             rate, dl = float(rates[b, k]), float(delta[b])
@@ -506,10 +740,10 @@ def schedule_batch_arrays(
             F = idx.shape[0]
             schedules.append(
                 CoreSchedule(
-                    coflow=a_coflow[b, idx],
-                    src=a_src[b, idx],
-                    dst=a_dst[b, idx],
-                    size=a_size[b, idx],
+                    coflow=h["coflow"][b, idx],
+                    src=h["src"][b, idx],
+                    dst=h["dst"][b, idx],
+                    size=h["size"][b, idx],
                     establish=est[g, :F].copy(),
                     complete=comp[g, :F].copy(),
                     rate=rate,

@@ -15,8 +15,9 @@ construction per ensemble, padded to its maxima, packs
     allocation scan and the calendar's durations.
 
 Every field is a tensor on the batch's device; the member axis is the
-instance list (no mesh padding in this port).  The slot-pool batch of the
-streaming service is not ported yet.
+instance list (no mesh padding in this port).  `expand_members` tiles it
+for refinement's candidates.  The slot-pool batch of the streaming service
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +33,9 @@ from repro_torch.core.allocation import Allocation
 from repro_torch.core.coflow import CoflowInstance, flows_of
 from repro_torch.device import resolve_device
 
-__all__ = ["EnsembleBatch", "AllocationBatch", "build_ensemble_batch", "PAD_LB"]
+__all__ = [
+    "EnsembleBatch", "AllocationBatch", "build_ensemble_batch", "expansion_maps", "PAD_LB",
+]
 
 # Padded-core sentinel: dominates every real candidate bound but stays
 # finite so padded-step arithmetic never produces inf * 0 = NaN.
@@ -136,6 +139,44 @@ class EnsembleBatch:
         """(B, Mp) running flow count after each order position."""
         return torch.gather(self.flow_counts, 1, orders).cumsum(dim=1)
 
+    # -- member expansion -------------------------------------------------
+    def expand_members(
+        self, reps: int
+    ) -> tuple["EnsembleBatch", np.ndarray, np.ndarray]:
+        """Tile every member ``reps`` times along the member axis.
+
+        The expansion behind candidate-search refinement
+        (`repro_torch.pipeline.refine`): expanded row ``b * reps + c`` is
+        copy (candidate slot) ``c`` of instance ``b``, candidate-major
+        within instance, so downstream stages see ``B * reps`` ordinary
+        members.  One `index_select` per tensor field on the batch's
+        device: a gather of this build, not a rebuild, so `port_stats`
+        does not run again.  Returns ``(expanded, instance_of,
+        candidate_of)``, the row maps of `expansion_maps`.
+        """
+        reps = int(reps)
+        if reps < 1:
+            raise ValueError(f"reps must be >= 1, got {reps}")
+        B = self.num_instances
+        idx = torch.arange(B, device=self.device).repeat_interleave(reps)
+
+        def rep(t: tuple) -> tuple:
+            return tuple(x for x in t for _ in range(reps))
+
+        kw = {
+            f.name: getattr(self, f.name).index_select(0, idx)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)
+        }
+        kw.update(
+            num_instances=B * reps,
+            num_coflows=rep(self.num_coflows),
+            num_ports=rep(self.num_ports),
+            num_cores=rep(self.num_cores),
+            num_flows=rep(self.num_flows),
+        )
+        return EnsembleBatch(**kw), *expansion_maps(B, reps)
+
 
 @dataclasses.dataclass(frozen=True)
 class AllocationBatch:
@@ -185,6 +226,15 @@ class AllocationBatch:
                 )
             )
         return out
+
+
+def expansion_maps(num_instances: int, reps: int) -> tuple[np.ndarray, np.ndarray]:
+    """Row maps of `EnsembleBatch.expand_members`'s layout: expanded row
+    ``r`` holds candidate slot ``candidate_of[r]`` of instance
+    ``instance_of[r]``, the inverse of ``r = instance * reps + candidate``."""
+    instance_of = np.repeat(np.arange(num_instances, dtype=np.int64), reps)
+    candidate_of = np.tile(np.arange(reps, dtype=np.int64), num_instances)
+    return instance_of, candidate_of
 
 
 def _canonical_flows(inst: CoflowInstance):

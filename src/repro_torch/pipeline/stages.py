@@ -8,10 +8,11 @@ Port of `repro.pipeline.stages`:
     ensemble's device; per instance in host NumPy);
   * `GreedyAllocate` -- batched on the device (`allocate_batch_arrays`);
     `allocate` is the per-instance host oracle;
-  * circuit stages -- `ListCircuit.schedule_batch_arrays` (both
-    disciplines; the pair-space calendar, ``engine="kernel"``, or the
-    flow-space one, ``engine="jax"``), with `ListCircuit.schedule` as the
-    per-instance host oracle; `SequentialCircuit` (SUNFLOW-S), `BvnCircuit`
+  * circuit stages -- `ListCircuit.schedule_batch_arrays` and its lean
+    `cct_batch_arrays` (both disciplines; the pair-space calendar,
+    ``engine="kernel"``, the flow-space one, ``engine="jax"``, the host
+    pair engine, ``engine="wide"``), with `ListCircuit.schedule` as the
+    per-instance host oracle and the ``backend="loop"`` path; `SequentialCircuit` (SUNFLOW-S), `BvnCircuit`
     (BvN-S) and `FluidCircuit` (EPS) schedule per instance on the host, as
     the reference does: they have no batched form.
 """
@@ -30,7 +31,11 @@ from repro_torch.core.ordering import fifo_order, lp_guided_order, wspt_order
 from repro_torch.core.scheduler import _flow_priorities, _schedule_all_cores
 from repro_torch.core.validate import ccts_from_schedules
 from repro_torch.pipeline.batch_alloc import allocate_batch_arrays
-from repro_torch.pipeline.batch_circuit import check_engine, schedule_batch_arrays
+from repro_torch.pipeline.batch_circuit import (
+    ENGINES,
+    cct_batch_arrays,
+    schedule_batch_arrays,
+)
 
 __all__ = [
     "LPOrder",
@@ -129,18 +134,34 @@ class GreedyAllocate:
 class ListCircuit:
     """Not-all-stop greedy port-matching list scheduler (Lines 16-30).
 
-    ``engine`` selects the calendar executor: ``"kernel"`` (pair space,
-    the `pair_resolve` kernel) or ``"jax"`` (flow space, the
-    `event_resolve` kernel); both give the same schedules.
+    Two backends with bit-identical schedules: ``"batch"`` (default) runs
+    the whole ensemble's padded event calendar; ``"loop"`` keeps the
+    per-instance host NumPy event loop (`schedule`), the parity oracle and
+    the explicit fallback.  Under ``"loop"`` the array forms return None,
+    so `Pipeline.run_batch` falls back to `schedule` (or raises under
+    ``require_batch``).
+
+    ``engine`` selects the batch backend's calendar executor:
+    ``"kernel"`` (pair space, the `pair_resolve` kernel), ``"jax"`` (flow
+    space, the `event_resolve` kernel), ``"wide"`` (host NumPy pair
+    engine) or ``"auto"`` (resolved from the ensemble's device at each
+    call, `batch_circuit.resolve_engine`); the loop backend ignores it.
     """
 
     kind = "list"
 
-    def __init__(self, discipline: str = "greedy", engine: str = "kernel"):
+    def __init__(
+        self, discipline: str = "greedy", backend: str = "batch", engine: str = "kernel"
+    ):
         if discipline not in ("reserving", "greedy"):
             raise ValueError(f"unknown discipline {discipline!r}")
+        if backend not in ("batch", "loop"):
+            raise ValueError(f"unknown circuit backend {backend!r}")
+        if engine not in ("auto",) + ENGINES:
+            raise ValueError(f"unknown circuit engine {engine!r}")
         self.discipline = discipline
-        self.engine = check_engine(engine)
+        self.backend = backend
+        self.engine = engine
 
     def schedule(self, instance, alloc, order):
         """Per-instance host oracle: `schedule_core` on every core."""
@@ -150,8 +171,20 @@ class ListCircuit:
         return schedules, ccts_from_schedules(instance.num_coflows, schedules)
 
     def schedule_batch_arrays(self, ensemble, alloc_batch):
-        """Padded tensors in, per-instance ``(schedules, ccts)`` out."""
+        """Padded tensors in, per-instance ``(schedules, ccts)`` out; None
+        under the ``"loop"`` backend."""
+        if self.backend != "batch":
+            return None
         return schedule_batch_arrays(
+            ensemble, alloc_batch, discipline=self.discipline, engine=self.engine
+        )
+
+    def cct_batch_arrays(self, ensemble, alloc_batch):
+        """Padded tensors in, the (B, Mp) CCTs out (refinement's lean
+        evaluation); None under the ``"loop"`` backend."""
+        if self.backend != "batch":
+            return None
+        return cct_batch_arrays(
             ensemble, alloc_batch, discipline=self.discipline, engine=self.engine
         )
 

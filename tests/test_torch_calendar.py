@@ -1,13 +1,17 @@
 """The port's circuit calendars against the NumPy event loop.
 
-Contract: under both engines (``"kernel"``, pair space on `pair_resolve`;
-``"jax"``, flow space on `event_resolve`) establish and complete times
-bit-identical to `repro.core.scheduler._schedule_all_cores` (hence
-`schedule_core`) on both disciplines -- mixed shapes, zero and arbitrary
-releases, zero-duration chains, empty cores and F=1 -- and to each other.
-The host checks for live members only every few rounds;
-`test_idle_rounds_change_nothing` shows that the extra rounds this runs
-are exact no-ops.  Tolerance: none.
+Contract: under every engine (``"kernel"``, pair space on `pair_resolve`;
+``"jax"``, flow space on `event_resolve`; ``"wide"``, the host NumPy pair
+engine) establish and complete times bit-identical to
+`repro.core.scheduler._schedule_all_cores` (hence `schedule_core`) on both
+disciplines -- mixed shapes, zero and arbitrary releases, zero-duration
+chains, empty cores, F=1 and the empty ensemble -- and to each other; the
+lean `cct_batch_arrays` gives the full stage's CCTs.  The host checks for
+live members only every few rounds; `test_idle_rounds_change_nothing`
+shows that the extra rounds this runs are exact no-ops.  ``"auto"`` and
+``REPRO_CIRCUIT_ENGINE`` resolve as the reference's `_check_engine`, with
+the device for its backend, and ``circuit_backend="loop"`` gives the
+batch backend's bits.  Tolerance: none.
 """
 
 import dataclasses
@@ -34,6 +38,8 @@ torch.set_num_threads(1)
 
 DISCIPLINES = ["reserving", "greedy"]
 ENGINES = ["kernel", "jax"]
+# The device engines and the host one.
+ALL_ENGINES = ENGINES + ["wide"]
 SCHED_FIELDS = ("coflow", "src", "dst", "size", "establish", "complete")
 
 
@@ -58,7 +64,7 @@ def _run_ensemble(refs, discipline, engine):
         assert ccts.tobytes() == ccts_from_schedules(inst.num_coflows, ref).tobytes()
 
 
-@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("engine", ALL_ENGINES)
 @pytest.mark.parametrize("discipline", DISCIPLINES)
 @pytest.mark.parametrize("seed", range(4))
 def test_fuzz_mixed_shapes_and_releases(seed, discipline, engine):
@@ -75,7 +81,7 @@ def test_fuzz_mixed_shapes_and_releases(seed, discipline, engine):
     _run_ensemble(refs, discipline, engine)
 
 
-@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("engine", ALL_ENGINES)
 @pytest.mark.parametrize("discipline", DISCIPLINES)
 def test_trace_releases(discipline, engine):
     from repro.traffic.instances import sample_instance
@@ -84,7 +90,7 @@ def test_trace_releases(discipline, engine):
     _run_ensemble(refs, discipline, engine)
 
 
-@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("engine", ALL_ENGINES)
 @pytest.mark.parametrize("discipline", DISCIPLINES)
 def test_single_flow_and_empty_cores(discipline, engine):
     demands = np.zeros((1, 3, 3))
@@ -116,7 +122,7 @@ def _run_tables(inst, alloc, order, discipline, engine, check_every=bc._CHECK_EV
     return live, est, comp
 
 
-@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("engine", ALL_ENGINES)
 @pytest.mark.parametrize("discipline", DISCIPLINES)
 def test_zero_duration_chains(discipline, engine):
     """size=0 + delta=0 flows chain same-pair starts at one instant."""
@@ -235,13 +241,12 @@ def test_event_bound_and_bad_discipline():
 
 
 @pytest.mark.parametrize("engine,msg", [
-    ("wide", "'wide' .* not ported yet"),
-    ("auto", "'auto' is not ported"),
     ("loop", "unknown circuit engine 'loop'"),
+    ("turbo", "unknown circuit engine 'turbo'"),
 ])
 def test_unported_and_unknown_engines_raise(engine, msg, monkeypatch):
-    """The reference's host engine ``"wide"`` and its ``"auto"`` choice are
-    not ported, and no environment variable picks an engine."""
+    """A name that is no engine raises everywhere, whatever
+    ``REPRO_CIRCUIT_ENGINE`` says (it stands in for ``"auto"`` only)."""
     from repro_torch.pipeline import get_pipeline
     from repro_torch.pipeline.stages import ListCircuit
 
@@ -251,6 +256,146 @@ def test_unported_and_unknown_engines_raise(engine, msg, monkeypatch):
     with pytest.raises(ValueError, match=msg):
         bc.schedule_batch_arrays(ens, alloc, engine=engine)
     with pytest.raises(ValueError, match=msg):
-        ListCircuit("greedy", engine)
+        bc.cct_batch_arrays(ens, alloc, engine=engine)
+    with pytest.raises(ValueError, match=msg):
+        ListCircuit("greedy", engine=engine)
     with pytest.raises(ValueError, match=msg):
         get_pipeline("ours", circuit_engine=engine)
+
+
+def test_resolve_engine_auto_env_and_explicit(monkeypatch):
+    """The cases of the reference's `_check_engine` test, with the device
+    standing in for ``jax.default_backend()``: ``"auto"`` is ``"kernel"``
+    on a card and ``"wide"`` on the host; a non-empty
+    ``REPRO_CIRCUIT_ENGINE`` overrides ``"auto"`` only, never an explicit
+    engine; junk in it raises."""
+    monkeypatch.delenv("REPRO_CIRCUIT_ENGINE", raising=False)
+    for device, want in (("cpu", "wide"), (torch.device("cpu"), "wide"),
+                         ("cuda", "kernel"), (torch.device("cuda", 0), "kernel")):
+        assert bc.resolve_engine("auto", device) == want
+    monkeypatch.setenv("REPRO_CIRCUIT_ENGINE", " JAX ")
+    assert bc.resolve_engine("auto", "cpu") == "jax"
+    assert bc.resolve_engine("auto", "cuda") == "jax"
+    for engine in ALL_ENGINES:  # an explicit engine wins over the variable
+        assert bc.resolve_engine(engine, "cpu") == engine
+    monkeypatch.setenv("REPRO_CIRCUIT_ENGINE", "  ")
+    assert bc.resolve_engine("auto", "cpu") == "wide"
+    monkeypatch.setenv("REPRO_CIRCUIT_ENGINE", "turbo")
+    with pytest.raises(ValueError, match="REPRO_CIRCUIT_ENGINE"):
+        bc.resolve_engine("auto", "cpu")
+    assert bc.resolve_engine("kernel", "cpu") == "kernel"
+
+
+@pytest.mark.parametrize("env,runs", [(None, "wide"), ("jax", "jax"), ("kernel", "kernel")])
+def test_auto_runs_the_resolved_engine(env, runs, monkeypatch):
+    """``circuit_engine="auto"`` on host tensors runs the engine it resolves
+    to (counted by `ROUNDS`; ``"wide"`` counts none) with the same bits."""
+    if env is None:
+        monkeypatch.delenv("REPRO_CIRCUIT_ENGINE", raising=False)
+    else:
+        monkeypatch.setenv("REPRO_CIRCUIT_ENGINE", env)
+    monkeypatch.setattr(bc, "ROUNDS", dict.fromkeys(ENGINES, 0))
+    refs = [random_instance(num_coflows=7, num_ports=4, num_cores=2, seed=s,
+                            release_span=9.0 * s) for s in range(3)]
+    orders = [wspt_order(r) for r in refs]
+    ens = build_ensemble_batch([from_reference(r, "cpu") for r in refs], device="cpu")
+    alloc = allocate_batch_arrays(ens, ens.pad_orders(orders))
+    got = bc.schedule_batch_arrays(ens, alloc, discipline="greedy", engine="auto")
+    rounds = dict(bc.ROUNDS)
+    want = bc.schedule_batch_arrays(ens, alloc, discipline="greedy", engine="kernel")
+    for (sg, cg), (sw, cw) in zip(got, want):
+        _assert_same(sg, sw, "auto")
+        assert cg.tobytes() == cw.tobytes()
+    assert {e for e, n in rounds.items() if n} == ({runs} if runs in ENGINES else set())
+
+
+@pytest.mark.parametrize("engine", ALL_ENGINES)
+@pytest.mark.parametrize("discipline", DISCIPLINES)
+def test_cct_batch_arrays_equals_full_stage(discipline, engine):
+    """The lean CCTs equal `ccts_from_schedules` of the full stage bit for
+    bit in each row's real prefix, and are 0 on padding."""
+    rng = np.random.default_rng(7)
+    refs = [
+        random_instance(num_coflows=int(rng.integers(2, 10)), num_ports=int(rng.integers(2, 6)),
+                        num_cores=int(rng.integers(1, 4)), release_span=12.0 * i, seed=50 + i)
+        for i in range(4)
+    ]
+    orders = [wspt_order(r) for r in refs]
+    ens = build_ensemble_batch([from_reference(r, "cpu") for r in refs], device="cpu")
+    alloc = allocate_batch_arrays(ens, ens.pad_orders(orders))
+    cct = bc.cct_batch_arrays(ens, alloc, discipline=discipline, engine=engine)
+    full = bc.schedule_batch_arrays(ens, alloc, discipline=discipline, engine=engine)
+    assert cct.shape == (len(refs), ens.pad_coflows) and cct.dtype == np.float64
+    for b, (ref, (_, ccts)) in enumerate(zip(refs, full)):
+        M = ref.num_coflows
+        assert cct[b, :M].tobytes() == ccts.tobytes()
+        assert not cct[b, M:].any()
+
+
+def test_wide_runs_no_device_round_and_empty_ensemble(monkeypatch):
+    """The host engine calls neither round kernel and counts no round; an
+    empty ensemble and empty member arrays give empty results."""
+    monkeypatch.setattr(bc, "ROUNDS", dict.fromkeys(ENGINES, 0))
+
+    def refuse(*args):
+        raise AssertionError("the wide engine called a round kernel")
+
+    monkeypatch.setattr(bc, "pair_resolve", refuse)
+    monkeypatch.setattr(bc, "event_resolve", refuse)
+    _run_ensemble([random_instance(num_coflows=6, num_ports=4, num_cores=2, seed=3,
+                                   release_span=5.0)], "greedy", "wide")
+    assert bc.ROUNDS == {"kernel": 0, "jax": 0}
+    empty = build_ensemble_batch([], device="cpu")
+    assert bc.schedule_batch_arrays(empty, None, engine="wide") == []
+    assert bc.cct_batch_arrays(empty, None, engine="wide").shape == (0, 0)
+    z = np.zeros((0, 0))
+    est, comp = bc._run_calendar_wide(z.astype(np.int64), z.astype(np.int64), z, z,
+                                      z.astype(bool), 4, True, 10)
+    assert est.shape == comp.shape == (0, 0)
+
+
+LOOP_SCHEMES = ["ours", "wspt_order", "load_only", "ours_ls"]
+
+
+@pytest.mark.parametrize("scheme", LOOP_SCHEMES)
+@pytest.mark.parametrize("discipline", DISCIPLINES)
+def test_loop_backend_equals_batch(scheme, discipline):
+    """``circuit_backend="loop"`` (the per-instance host oracle) gives the
+    batch backend's orders, core choices, times and CCTs bit for bit; for
+    ``ours_ls`` its refinement runs `refine_sequential`, which
+    ``require_batch=True`` refuses, as it refuses the loop's circuit."""
+    from repro.core import lp as ref_lp
+    from repro_torch.pipeline import get_pipeline
+
+    refs = [random_instance(num_coflows=m, num_ports=n, num_cores=k, seed=s,
+                            release_span=10.0 * (s % 2))
+            for m, n, k, s in [(6, 3, 2, 0), (8, 4, 3, 1), (5, 5, 1, 2)]]
+    insts = [from_reference(r, "cpu") for r in refs]
+    sols = [from_reference(ref_lp.solve_exact(r), "cpu") for r in refs]
+    batch = get_pipeline(scheme, discipline=discipline).run_batch(insts, sols, device="cpu")
+    loop_pipe = get_pipeline(scheme, discipline=discipline, circuit_backend="loop")
+    loop = loop_pipe.run_batch(insts, sols, device="cpu")
+    for a, b in zip(loop, batch):
+        assert a.order.tobytes() == b.order.tobytes()
+        assert a.allocation.core.tobytes() == b.allocation.core.tobytes()
+        _assert_same(a.core_schedules, b.core_schedules, scheme)
+        assert a.ccts.tobytes() == b.ccts.tobytes()
+        assert a.total_weighted_cct == b.total_weighted_cct
+    match = "sequential refinement" if scheme == "ours_ls" else "per-instance circuit loop"
+    with pytest.raises(RuntimeError, match=match):
+        loop_pipe.run_batch(insts, sols, device="cpu", require_batch=True)
+
+
+def test_unknown_backend_raises():
+    from repro_torch.pipeline import get_pipeline
+    from repro_torch.pipeline.stages import ListCircuit
+
+    with pytest.raises(ValueError, match="unknown circuit backend 'vector'"):
+        ListCircuit("greedy", backend="vector")
+    with pytest.raises(ValueError, match="unknown circuit backend"):
+        get_pipeline("ours", circuit_backend="vector")
+    # Stages with no batched form ignore the backend, as the reference's do.
+    assert get_pipeline("bvn_s", circuit_backend="vector").circuit_stage.kind == "bvn"
+    loop = ListCircuit("greedy", backend="loop")
+    assert loop.schedule_batch_arrays(None, None) is None
+    assert loop.cct_batch_arrays(None, None) is None

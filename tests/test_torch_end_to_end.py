@@ -3,8 +3,8 @@
 * With the reference's exact LP solutions injected, `run_batch` gives
   CCTs (and orders, allocations, schedules) bit-identical to
   `repro.core.scheduler._legacy_run` -- the oracle the reference's own
-  `run_batch` is held to -- under both disciplines and both calendar
-  engines (``"kernel"``, ``"jax"``).  Tolerance: none.
+  `run_batch` is held to -- under both disciplines and every calendar
+  engine (``"kernel"``, ``"jax"``, ``"wide"``).  Tolerance: none.
 * With the port's own LP, every schedule validates and every weighted CCT
   is within (8K+1) x the exact LP optimum (the paper's bound).
 """
@@ -39,7 +39,7 @@ def ensemble():
     return refs, [ref_lp.solve_exact(r) for r in refs]
 
 
-@pytest.mark.parametrize("engine", ["kernel", "jax"])
+@pytest.mark.parametrize("engine", ["kernel", "jax", "wide"])
 @pytest.mark.parametrize("discipline", DISCIPLINES)
 def test_injected_lp_bit_identical_to_legacy_run(ensemble, discipline, engine):
     refs, sols = ensemble
@@ -85,7 +85,7 @@ def test_run_batch_needs_lp_solutions(ensemble):
     with pytest.raises(ValueError, match="length mismatch"):
         pipe.run_batch(insts, [from_reference(s, "cpu") for s in sols[:-1]], device="cpu")
     assert pipe.run_batch([], [], device="cpu") == []
-    assert list_schemes() == PAPER_SCHEMES + ("eps",)
+    assert list_schemes() == PAPER_SCHEMES + ("eps", "ours_ls")
 
 
 def test_run_batch_solves_missing_lp_solutions(ensemble):

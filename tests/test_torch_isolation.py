@@ -51,7 +51,10 @@ def test_new_modules_are_checked():
     calendar's kernel, xLSTM (config, blocks, mLSTM kernel) and the
     training path (quant kernels, compression, AdamW, data, steps, train)
     and the baselines' oracles and stages (BvN, EPS, allocation, circuit,
-    scheduler, stages) are among the files the syntax check reads."""
+    scheduler, stages), and refinement, the calendar's executors and the
+    collective planner (localsearch, refine, batch_circuit, pipeline,
+    spec, ensemble_batch, planner) are among the files the syntax check
+    reads."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in (
         "core/lp.py", "core/ordering.py", "core/lower_bounds.py", "core/theory.py",
@@ -63,6 +66,9 @@ def test_new_modules_are_checked():
         "data/pipeline.py", "launch/steps.py", "launch/train.py", "tree.py",
         "core/bvn.py", "core/eps.py", "core/allocation.py", "core/circuit.py",
         "core/scheduler.py", "pipeline/stages.py",
+        "core/localsearch.py", "pipeline/refine.py", "pipeline/batch_circuit.py",
+        "pipeline/pipeline.py", "pipeline/spec.py", "pipeline/ensemble_batch.py",
+        "collectives/__init__.py", "collectives/planner.py",
     ):
         assert f"src/repro_torch/{mod}" in names
 
@@ -76,7 +82,8 @@ def test_import_loads_no_jax():
         "repro_torch.kernels.mlstm_chunk, repro_torch.launch.serve, "
         "repro_torch.kernels.quant, repro_torch.runtime.compression, "
         "repro_torch.optim, repro_torch.data.pipeline, repro_torch.launch.train, "
-        "repro_torch.core.bvn, repro_torch.core.eps; "
+        "repro_torch.core.bvn, repro_torch.core.eps, repro_torch.core.localsearch, "
+        "repro_torch.pipeline.refine, repro_torch.collectives.planner; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -98,6 +105,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.launch import train
     from repro_torch.launch.serve import main, serve
     from repro_torch.models import build_model
+    from repro_torch.collectives.planner import GradientBucket, plan
     from repro_torch.pipeline import build_ensemble_batch, get_pipeline
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -131,6 +139,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                       "--max-new", "1"]),
         lambda: train.main(["--arch", "gemma3-1b", "--steps", "1", "--compress-grads"]),
         lambda: train.train(cfg, steps=1, batch=1, seq=4, compress_grads=True),
+        lambda: get_pipeline("ours_ls").run_batch([inst], [sol]),
+        lambda: get_pipeline("ours").run(inst, sol, refine=True),
+        lambda: get_pipeline("ours", circuit_engine="wide").run_batch([inst], [sol]),
+        lambda: get_pipeline("ours", circuit_backend="loop").run_batch([inst], [sol]),
+        lambda: plan([GradientBucket("b0", 1 << 20, 0.0)]),
+        lambda: train.main(["--arch", "gemma3-1b", "--steps", "1", "--plan-collectives"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -150,10 +150,16 @@ def test_build_pipeline_configures_lp_stage():
 
 
 def test_unported_run_options_are_refused(solved):
+    """The reference's ``mesh`` sharding is not ported (ROADMAP item 9);
+    ``refine`` and ``stage_cache`` are (PR 26) and run."""
     ref, sol = solved["zero"]
     inst, s = from_reference(ref, "cpu"), from_reference(sol, "cpu")
     pipe = get_pipeline("ours")
-    with pytest.raises(TypeError, match="refine"):
-        pipe.run(inst, s, refine=True, device="cpu")
-    with pytest.raises(TypeError, match="stage_cache"):
-        pipe.run_batch([inst], [s], stage_cache={}, device="cpu")
+    with pytest.raises(TypeError, match="mesh"):
+        pipe.run(inst, s, mesh=None, device="cpu")
+    with pytest.raises(TypeError, match="mesh"):
+        pipe.run_batch([inst], [s], mesh=None, device="cpu")
+    refined = pipe.run(inst, s, refine=True, device="cpu")
+    assert refined.total_weighted_cct <= pipe.run(inst, s, device="cpu").total_weighted_cct
+    assert pipe.run_batch([inst], [s], stage_cache={}, device="cpu")[0].ccts.tobytes() == (
+        pipe.run(inst, s, device="cpu").ccts.tobytes())

@@ -17,8 +17,9 @@
   (+1) bound of the exact LP; delta > 0 refused.
 * `build_pipeline` for every order and circuit kind; unknown kinds raise.
 * The host circuit stages run no calendar round; list stages do.
-* On the card (``cuda`` marker): every scheme's `run_batch` bit-identical
-  to the same call on the CPU.
+* On the card (``cuda`` marker): every scheme's `run_batch` (and
+  ``ours_ls``'s), under each calendar engine, bit-identical to the same
+  call on the CPU.
 """
 
 import dataclasses
@@ -329,14 +330,15 @@ def test_build_pipeline_unknown_kind_raises(field, match):
     with pytest.raises(ValueError, match=match):
         build_pipeline(spec)
     with pytest.raises(ValueError, match="unknown scheme"):
-        get_pipeline("ours_ls")
+        get_pipeline("nope")
 
 
 def test_registry():
     assert PAPER_SCHEMES == ("ours", "wspt_order", "load_only", "sunflow_s", "bvn_s")
-    assert list_schemes() == PAPER_SCHEMES + ("eps",)
+    assert list_schemes() == PAPER_SCHEMES + ("eps", "ours_ls")
     table = {k: (get_scheme(k).name, get_scheme(k).order, get_scheme(k).include_tau,
                  get_scheme(k).circuit) for k in list_schemes()}
+    assert [k for k in list_schemes() if get_scheme(k).refine is not None] == ["ours_ls"]
     assert table == {
         "ours": ("OURS", "lp", True, "list"),
         "wspt_order": ("WSPT-ORDER", "wspt", True, "list"),
@@ -344,6 +346,7 @@ def test_registry():
         "sunflow_s": ("SUNFLOW-S", "lp", True, "sequential"),
         "bvn_s": ("BVN-S", "lp", True, "bvn"),
         "eps": ("EPS", "lp", False, "fluid"),
+        "ours_ls": ("OURS+LS", "lp", True, "list"),
     }
 
 
@@ -371,11 +374,14 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scheme", PAPER_SCHEMES)
-def test_card_equals_host(cuda, small, scheme):
+@pytest.mark.parametrize("engine", ["kernel", "jax", "wide"])
+@pytest.mark.parametrize("scheme", PAPER_SCHEMES + ("ours_ls",))
+def test_card_equals_host(cuda, small, scheme, engine):
+    """Every scheme on the card under each calendar engine (list circuits
+    run it; the host circuits ignore it) equals the host's run."""
     _, _, insts, psols = small
     for d in DISCIPLINES:
-        pipe = get_pipeline(scheme, discipline=d)
+        pipe = get_pipeline(scheme, discipline=d, circuit_engine=engine)
         for a, b in zip(pipe.run_batch(insts, psols, device=cuda),
                         pipe.run_batch(insts, psols, device="cpu")):
             _assert_same_result(a, b)

@@ -321,9 +321,11 @@ def test_compressed_step_is_the_trainers_step():
 
 
 @pytest.mark.parametrize("flag", [["--checkpoint-dir", "ckpt"], ["--inject-failure", "2"],
-                                  ["--plan-collectives"]])
+                                  ["--inject-failure", "2", "--plan-collectives"]])
 def test_train_unported_flags_raise(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item (10|6)"):
+    """Checkpointing and failure injection are refused before anything
+    runs, the collective planner (ported) included."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 10"):
         train_mod.main(["--device", "cpu", "--steps", "1", *flag])
 
 
