@@ -162,9 +162,37 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    resolving to ``"kernel"`` on the card and, with
    ``REPRO_CIRCUIT_ENGINE=jax``, running the flow calendar, and ``ours``
    under ``circuit_backend="loop"``;
-11. the ``kernels`` JSON line (the calendar kernels' and `port_stats`'
-   launches summed over phases 3, 8 and 10), then ``{"ok": true,
-   "device": ...}`` last.
+11. the streaming service through ``repro_torch.experiments.stream`` on
+   the card.  First the kernels at the streams' own shapes against their
+   twins: `lp_terms_batch` on a full pool's LP as the resident epoch
+   gathers it ((1, 16, 48) and (1, 32, 96), within rtol(M), the plan
+   logged) and `port_stats` on an `update_slots` stack ((16, 24, 24)
+   and (32, 48, 48), bit for bit under the plan and every tiling).  Then
+   (a) the reference's CI service cell (`benchmarks/
+   trace_scale.py`, ``fb_quick``'s ``service``: 48 coflows, 24 ports,
+   K = 2, trace releases, pool 16, 6 batches, 600 iterations), resident
+   and warm, validated on every epoch, every coflow finished, within
+   (8K+1) of the exact LP, one build, `port_stats` launched once per
+   `update_slots` call plus the build, `lp_terms_batch` each epoch's
+   steps + 2, `pair_resolve` once per calendar round; (b) the cell's
+   first 24 coflows in release order in 3 batches (pool kept) with warm
+   starts off (20 iterations): resident equal to rebuild, bit for bit;
+   (c) the same prefix with the exact LP on the rebuild mode, preemption
+   on and off, under the pair and the flow calendar: each stream equal to
+   the host's, and committed circuits carried into a calendar without
+   preemption; (d) one batch without preemption of
+   ``paper_default_instance(0)`` with the exact LP equal to
+   ``get_pipeline("ours").run_batch``; (e) the long-horizon cell
+   (``fb_full``'s ``service``: 192 coflows, 48 ports, K = 4, pool 32,
+   900 iterations, 300 warm), cut to its first 64 coflows in release
+   order in 8 batches, logged: epochs, weighted CCT, the margin against
+   the subgradient objective, warm re-solve p50 / p95 / p99, the
+   warm-epoch wall, the mean host seconds a stage (`EpochRecord.stage_s`:
+   slot writes, LP, order, allocation, calendar), and one profiled warm
+   epoch's busy share and launches (left out of the walls);
+12. the ``kernels`` JSON line (the calendar kernels' and `port_stats`'
+   launches summed over phases 3, 8, 10 and 11, `lp_terms_batch`'s over
+   phases 3 and 11), then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero as well without a CUDA device.
@@ -231,35 +259,53 @@ def bound_ms(nbytes: float, ops: float, peak: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def profile_device(torch, fn, cpu: bool = True):
-    """Run ``fn()`` under `torch.profiler`; return the wall seconds and,
-    per device kernel name, (total device microseconds, launches).
-    ``cpu=False`` records device activity only and sums the trace's raw
-    device events, building no host event tree: the same sums, without the
-    tree that makes a window of tens of thousands of kernels slow to
-    summarize."""
-    from torch.profiler import ProfilerActivity, profile
+class DeviceWindow:
+    """A `torch.profiler` window opened by `start` and closed by `stop`,
+    which returns the wall seconds and, per device kernel name, (total
+    device microseconds, launches).  ``cpu=False`` records device activity
+    only and sums the trace's raw device events, building no host event
+    tree: the same sums, without the tree that makes a window of tens of
+    thousands of kernels slow to summarize."""
 
-    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
-    torch.cuda.synchronize()
-    with profile(activities=activities) as prof:
-        t0 = time.perf_counter()
-        fn()
+    def __init__(self, torch, cpu: bool = True):
+        self.torch, self.cpu = torch, cpu
+
+    def start(self) -> None:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if self.cpu else [])
+        self.torch.cuda.synchronize()
+        self.prof = profile(activities=activities)
+        self.prof.start()
+        self.t0 = time.perf_counter()
+
+    def stop(self):
+        torch, prof = self.torch, self.prof
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    cuda = torch.autograd.DeviceType.CUDA
-    if cpu:
-        return wall, {
-            e.key: (e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == cuda
-        }
-    kernels = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == cuda:
-            us, n = kernels.get(e.name(), (0.0, 0))
-            kernels[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
-    return wall, kernels
+        wall = time.perf_counter() - self.t0
+        prof.stop()
+        cuda = torch.autograd.DeviceType.CUDA
+        if self.cpu:
+            return wall, {
+                e.key: (e.self_device_time_total, e.count)
+                for e in prof.key_averages()
+                if e.device_type == cuda
+            }
+        kernels = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == cuda:
+                us, n = kernels.get(e.name(), (0.0, 0))
+                kernels[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+        return wall, kernels
+
+
+def profile_device(torch, fn, cpu: bool = True):
+    """Run ``fn()`` in a `DeviceWindow`; return its wall seconds and
+    per-kernel device sums."""
+    window = DeviceWindow(torch, cpu)
+    window.start()
+    fn()
+    return window.stop()
 
 
 # ---------------------------------------------------------------------------
@@ -393,7 +439,7 @@ def single_lp_args(torch, inst, seed):
     dev = torch.device("cuda")
     ((rho, tau),) = lp.instance_port_stats([inst], dev)
     w = torch.from_numpy(inst.weights).to(dev)
-    Y0 = lp._warm_start_Y0(w, lp.global_lower_bound(inst, rho))
+    Y0 = lp.warm_start_Y0_dense(w, lp.global_lower_bound(inst, rho))
     g = torch.Generator().manual_seed(seed)
     Y = torch.clamp(Y0 + 0.3 * torch.rand(Y0.shape, generator=g).to(dev), 0.0, 1.0)
     return (
@@ -453,6 +499,30 @@ def host_copy(torch, host_parts):
             statistics.median(events), stacked.numel() * 8)
 
 
+def hold_port_stats(torch, label, d):
+    """`port_stats` on the card's stacked demands ``d`` against its twin and
+    host NumPy bit for bit (rho f64, tau exact) under its plan and every
+    tiling; logs and returns the plan."""
+    from repro_torch.kernels import port_stats as ps
+    from repro_torch.kernels.common import sm_count
+
+    M, N = d.shape[:2]
+    p = ps.plan(M, N, sm_count(d.device))
+    rho_p, tau_p = ps.port_stats_plain(d)
+    dh = d.cpu().numpy()
+    rho_np = np.concatenate([dh.sum(axis=2), dh.sum(axis=1)], axis=-1)
+    check(np.array_equal(rho_p.cpu().numpy(), rho_np), f"port_stats twin {label} != NumPy")
+    plans = [None] + ps.tilings(M, N)
+    for q in plans:
+        rho, tau = ps.port_stats(d, plan=q)
+        torch.cuda.synchronize()
+        check(torch.equal(tau, tau_p), f"port_stats tau {label} plan {q} != plain")
+        check(torch.equal(rho, rho_p), f"port_stats rho {label} plan {q} != plain")
+    log(f"port_stats {label} ({M},{N},{N}): rho and tau exact (plain and NumPy) under "
+        f"the plan and {len(plans) - 1} tilings; plan {json.dumps(dataclasses.asdict(p))}")
+    return p
+
+
 def phase_port_stats(torch, demands):
     """`port_stats` against its twin and host NumPy bit for bit (rho f64,
     tau exact) under its plan and every tiling (`tilings`), at the
@@ -462,10 +532,8 @@ def phase_port_stats(torch, demands):
     line reports), and the pageable copy of each stacked input is logged
     beside the kernel."""
     from repro_torch.kernels import port_stats as ps
-    from repro_torch.kernels.common import sm_count
 
     dev = torch.device("cuda")
-    sms = sm_count(dev)
     g = torch.Generator().manual_seed(48)
     parts = {}
     for label, (M, N) in (("48 ports, random", (192, 48)), ("240 ports, random", (64, 240))):
@@ -477,19 +545,7 @@ def phase_port_stats(torch, demands):
         host_parts = parts[label]
         d = torch.from_numpy(np.concatenate(host_parts)).to(dev)
         M, N = d.shape[:2]
-        p = ps.plan(M, N, sms)
-        rho_p, tau_p = ps.port_stats_plain(d)
-        dh = d.cpu().numpy()
-        rho_np = np.concatenate([dh.sum(axis=2), dh.sum(axis=1)], axis=-1)
-        check(np.array_equal(rho_p.cpu().numpy(), rho_np), f"port_stats twin {label} != NumPy")
-        plans = [None] + ps.tilings(M, N)
-        for q in plans:
-            rho, tau = ps.port_stats(d, plan=q)
-            torch.cuda.synchronize()
-            check(torch.equal(tau, tau_p), f"port_stats tau {label} plan {q} != plain")
-            check(torch.equal(rho, rho_p), f"port_stats rho {label} plan {q} != plain")
-        log(f"port_stats {label} ({M},{N},{N}): rho and tau exact (plain and NumPy) under "
-            f"the plan and {len(plans) - 1} tilings; plan {json.dumps(dataclasses.asdict(p))}")
+        p = hold_port_stats(torch, label, d)
         # Bytes: f64 demands in, f64 rho and int32 tau out; operations:
         # row add, column add, two compares.
         t = timed_call(
@@ -2523,6 +2579,318 @@ def phase_engines(torch, instances, sols, ours_results):
         f"run_batch {loop_s:.4f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the streaming service
+# ---------------------------------------------------------------------------
+
+# The reference's service cells (`benchmarks/trace_scale.py`, SCENARIOS
+# "fb_quick" and "fb_full", key "service"): the instance, the pool, the
+# arrival batches and the LP iterations.
+SERVICE_QUICK = dict(num_coflows=48, num_ports=24, rates=(10.0, 20.0), release="trace", seed=0)
+SERVICE_QUICK_RUN = dict(pool_size=16, n_batches=6, lp_iters=600)
+SERVICE_LONG = dict(num_coflows=192, num_ports=48, rates=(10.0, 20.0, 30.0, 40.0),
+                    release="trace", seed=0)
+SERVICE_LONG_RUN = dict(pool_size=32, n_batches=24, lp_iters=900)
+# The long cell's first coflows in release order, with its pool, ports,
+# cores and iterations, and 8 coflows a batch: whole, the cell takes more
+# than the smoke's share (PERF.md, section 4; item 4's benchmark runs it).
+SERVICE_LONG_PREFIX = 64
+# (b) and (c) run the CI cell's first coflows in release order, 8 a batch,
+# with its pool, ports, cores and iterations: more than the pool, so
+# drain epochs run too (each stream of the whole cell costs 14-40 s of
+# host issue; PERF.md, section 5).
+SERVICE_QUICK_PREFIX = 24
+# Steps of the warm-start-free resident-against-rebuild check (b): its
+# claim is bit equality, which any count tests.
+SERVICE_COLD_ITERS = 20
+
+
+def release_prefix(inst, n):
+    """``inst``'s first ``n`` coflows in release order."""
+    from repro_torch.core.coflow import CoflowInstance
+
+    keep = np.argsort(inst.releases, kind="stable")[:n]
+    return CoflowInstance(inst.demands[keep], inst.weights[keep], inst.releases[keep],
+                          inst.rates, inst.delta)
+
+
+def stream_bound(inst) -> float:
+    """The paper's factor: 8K, plus 1 when any release is positive."""
+    return 8.0 * inst.num_cores + (1.0 if (inst.releases > 0).any() else 0.0)
+
+
+def check_same_stream(ctx, a, b):
+    """Two `StreamResult`s bit-identical: admissions, finishes and each
+    epoch's time, actives, order, projected CCTs and LP objective."""
+    check(a.num_resolves == b.num_resolves,
+          f"{ctx}: {a.num_resolves} against {b.num_resolves} epochs")
+    check(np.array_equal(a.admission, b.admission), f"{ctx}: admissions differ")
+    check(np.array_equal(a.finish, b.finish), f"{ctx}: finish times differ")
+    for e, f in zip(a.epochs, b.epochs):
+        same = (e.time == f.time and np.array_equal(e.actives, f.actives)
+                and np.array_equal(e.order, f.order) and np.array_equal(e.ccts, f.ccts)
+                and e.lp_objective == f.lp_objective and e.num_busy == f.num_busy)
+        check(same, f"{ctx}: epoch {e.index} differs")
+
+
+def check_stream_kernels(torch, label, inst, S):
+    """A stream's `lp_terms_batch` and `port_stats` held against their
+    twins at its own shapes: the LP of a full pool, (1, S, 2N), as the
+    resident epoch gathers it (`pack_lp_arrays` of the first S coflows
+    padded to S coflows and 2N ports, Y perturbed into the box as phase 2
+    does), within rtol(S); and `update_slots`' stack of their (S, N, N)
+    demands, bit for bit under the plan and every tiling."""
+    from repro_torch.core import lp
+    from repro_torch.kernels import lp_terms as lt
+    from repro_torch.kernels.common import sm_count
+
+    dev = torch.device("cuda")
+    first = release_prefix(inst, S)
+    arrays = lp.pack_lp_arrays([first], pad_coflows=S, pad_ports=2 * inst.num_ports,
+                               device=dev)
+    g = torch.Generator().manual_seed(7)
+    Y = arrays["Y0"] + 0.3 * torch.rand(arrays["Y0"].shape, generator=g).to(dev)
+    X = lp._precedence_X(torch.clamp(Y, 0.0, 1.0), arrays["coflow_mask"]).contiguous()
+    args = (X, arrays["p_rho"], arrays["p_tau"], arrays["inv_R"], arrays["delta_over_K"])
+    B, M, P = args[1].shape
+    got = lt.lp_terms_batch(*args)
+    torch.cuda.synchronize()
+    err = check_lp_terms(f"lp_terms_batch {label} stream (B={B}, M={M}, P={P})", got,
+                         lt.lp_terms_batch_plain(*args), M, lt.rtol(M))
+    log(f"lp_terms_batch {label} stream (B={B}, M={M}, P={P}): plan "
+        f"{json.dumps(lp_plan(lt.plan(B, M, P, sm_count(dev))))}")
+    hold_port_stats(torch, f"{label} update_slots stack",
+                    torch.from_numpy(np.ascontiguousarray(first.demands)).to(dev))
+    return err
+
+
+class EpochProfile:
+    """Profiles one resident epoch of a stream (`DeviceWindow`,
+    ``cpu=False``), from its first slot write (`update_slots` or the
+    release refresh `set_slot_releases`) to its calendar's end.  While the
+    stream runs it wraps those three names of `streaming.service`; the
+    wrappers only count epochs and open and close the window (which
+    synchronizes), so every other epoch runs as users run it."""
+
+    def __init__(self, torch, epoch: int):
+        from repro_torch.streaming import service
+
+        self.torch, self.service, self.epoch = torch, service, epoch
+        self.seen = 0
+        self.window = None
+        self.profile = None
+        self.saved = (service.update_slots, service.set_slot_releases,
+                      service.schedule_batch_arrays)
+
+    def _open(self):
+        if self.seen == self.epoch and self.window is None:
+            self.window = DeviceWindow(self.torch, cpu=False)
+            self.window.start()
+
+    def __enter__(self):
+        update, releases, calendar = self.saved
+
+        def update_slots(*a, **k):
+            self._open()
+            return update(*a, **k)
+
+        def set_slot_releases(*a, **k):
+            self._open()
+            return releases(*a, **k)
+
+        def schedule(*a, **k):
+            out = calendar(*a, **k)
+            if self.window is not None and self.profile is None:
+                self.profile = self.window.stop()
+            self.seen += 1
+            return out
+
+        service = self.service
+        service.update_slots, service.set_slot_releases = update_slots, set_slot_releases
+        service.schedule_batch_arrays = schedule
+        return self
+
+    def __exit__(self, *exc):
+        (self.service.update_slots, self.service.set_slot_releases,
+         self.service.schedule_batch_arrays) = self.saved
+
+
+def stage_means(epochs):
+    """Mean host seconds a stage over ``epochs`` (`EpochRecord.stage_s`)."""
+    keys = epochs[0].stage_s
+    return {k: float(np.mean([e.stage_s[k] for e in epochs])) for k in keys}
+
+
+def phase_streaming(torch):
+    """The streaming service on the card (see the module docstring, 11)."""
+    from repro_torch.core import lp
+    from repro_torch.experiments import stream
+    from repro_torch.pipeline import batch_circuit, get_pipeline
+    from repro_torch.pipeline import ensemble_batch as eb
+    from repro_torch.traffic import paper_default_instance, sample_instance
+
+    launches = []
+
+    def counted(fn):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        launches.append(counts)
+        return out, counts, time.perf_counter() - t0
+
+    quick = sample_instance(**SERVICE_QUICK)
+    long = release_prefix(sample_instance(**SERVICE_LONG), SERVICE_LONG_PREFIX)
+    # The kernels at the streams' shapes, outside the counted runs.
+    check_stream_kernels(torch, "fb_quick", quick, SERVICE_QUICK_RUN["pool_size"])
+    check_stream_kernels(torch, "fb_full", long, SERVICE_LONG_RUN["pool_size"])
+
+    # (a) The CI service cell: resident, warm, validated on every epoch.
+    lb = lp.solve_exact(quick).objective
+    builds, grows = eb.BUILD_COUNT, eb.SLOT_GROW_COUNT
+    res, counts, wall = counted(lambda: stream(
+        quick, **SERVICE_QUICK_RUN, epoch_mode="resident", warm_start=True, validate=True))
+    check(res.epoch_mode == "resident" and res.num_resolves > 0, "service: no resident epochs")
+    check(bool((res.finish > res.arrival).all()), "service: a coflow did not finish after it arrived")
+    limit = stream_bound(quick) * lb
+    check(res.realized_weighted_cct <= limit * (1 + 1e-9),
+          f"service: weighted CCT {res.realized_weighted_cct} > (8K+1) x exact LP {limit}")
+    check(eb.BUILD_COUNT == builds + 1, f"service: {eb.BUILD_COUNT - builds} builds, expected 1")
+    expect_lp = sum(e.lp_iters_used + 2 for e in res.epochs)
+    updates = sum(1 for e in res.epochs if e.slots_written)
+    rounds = batch_circuit.ROUNDS["kernel"]
+    check(counts["port_stats"] == updates + 1,
+          f"service: port_stats launched {counts['port_stats']} times, expected "
+          f"{updates} update_slots calls + 1 build")
+    check(counts["lp_terms_batch"] == expect_lp,
+          f"service: lp_terms_batch launched {counts['lp_terms_batch']} times, expected "
+          f"{expect_lp} (each epoch's steps + 2)")
+    check(counts["pair_resolve"] == rounds > 0,
+          f"service: pair_resolve launched {counts['pair_resolve']} times, expected {rounds}")
+    check(counts["event_resolve"] == counts["lp_terms"] == 0,
+          f"service: unexpected launches {counts}")
+    split = stage_means(res.epochs)
+    log(f"service fb_quick (48 coflows, 24 ports, K=2, pool 16, 6 batches, 600 iterations, "
+        f"resident, warm): {res.num_resolves} epochs, {res.warm_resolves} warm re-solves, "
+        f"{res.iteration_savings} iterations saved; every coflow finished, every epoch "
+        f"validated; weighted CCT {res.realized_weighted_cct:.6g} = "
+        f"{res.realized_weighted_cct / lb:.4f} x exact LP {lb:.6g} (bound "
+        f"{stream_bound(quick):g}); {eb.BUILD_COUNT - builds} build, "
+        f"{eb.SLOT_GROW_COUNT - grows} arena growths; wall {wall:.2f} s (LP "
+        f"{res.lp_time_s:.2f} s); per-epoch mean host s "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f"; launches {json.dumps(counts)} (port_stats = {updates} update_slots + 1 "
+        f"build, lp_terms_batch = {expect_lp}, pair_resolve = {rounds} rounds)")
+
+    # (b) Warm starts off: resident equals rebuild, bit for bit.
+    short = release_prefix(quick, SERVICE_QUICK_PREFIX)
+    short_run = dict(SERVICE_QUICK_RUN, n_batches=SERVICE_QUICK_PREFIX // 8)
+    cold = dict(short_run, lp_iters=SERVICE_COLD_ITERS, warm_start=False, validate=False)
+    runs = {}
+    for mode in ("rebuild", "resident"):
+        runs[mode], counts, wall = counted(lambda: stream(short, **cold, epoch_mode=mode))
+        log(f"service fb_quick first {SERVICE_QUICK_PREFIX} coflows, {mode}, warm starts off "
+            f"({SERVICE_COLD_ITERS} iterations): {runs[mode].num_resolves} epochs, wall "
+            f"{wall:.2f} s, launches {json.dumps(counts)}")
+    check_same_stream("service resident vs rebuild (warm starts off)", runs["resident"],
+                      runs["rebuild"])
+    log("service fb_quick: resident and rebuild modes bit-identical with warm starts off "
+        "(every epoch's order, projected CCTs and LP objective; admissions, finishes)")
+
+    # (c) The exact LP, rebuild mode: card against host, both card
+    # engines, preemption on and off.  The host runs each stream once, under
+    # its own engine (`engine="auto"`: the host NumPy one); every engine
+    # gives the same bits (the CPU tests hold all three to each other).
+    short_limit = stream_bound(short) * lp.solve_exact(short).objective
+    for preempt in (True, False):
+        kw = dict(short_run, lp_method="exact", preempt=preempt)
+        t0 = time.perf_counter()
+        host = stream(short, **kw, device="cpu")
+        host_s = time.perf_counter() - t0
+        for engine, kernel in (("kernel", "pair_resolve"), ("jax", "event_resolve")):
+            card, counts, card_s = counted(lambda: stream(short, **kw, engine=engine))
+            check(counts[kernel] == batch_circuit.ROUNDS[engine] > 0,
+                  f"service exact {engine}: {kernel} launched {counts[kernel]} times")
+            check_same_stream(f"service exact preempt={preempt} {engine}: card vs host", card, host)
+            busy = max(e.num_busy for e in card.epochs)
+            if not preempt:
+                check(busy > 0, f"service exact {engine}: no epoch carried committed circuits")
+            check(card.realized_weighted_cct <= short_limit * (1 + 1e-9),
+                  f"service exact {engine} preempt={preempt}: over the bound")
+            log(f"service fb_quick first {SERVICE_QUICK_PREFIX} coflows, exact LP, rebuild, "
+                f"preempt={preempt}, engine {engine}: {card.num_resolves} epochs, most "
+                f"committed circuits in an epoch {busy}, bit-identical to the host's stream; "
+                f"{kernel} {counts[kernel]} launches; {card_s:.2f} s on the card, "
+                f"{host_s:.2f} s on the host (its own engine)")
+
+    # (d) Replay: one batch, no preemption, the exact LP = the offline run.
+    t0 = time.perf_counter()
+    paper = paper_default_instance(0)
+    sol = lp.solve_exact(paper)
+    off = get_pipeline("ours").run_batch([paper], [sol])[0]
+    rep = stream(paper, lp_method="exact", n_batches=1, preempt=False)
+    e0 = rep.epochs[0]
+    check(rep.num_resolves == 1 and np.array_equal(e0.order, off.order),
+          "replay: orders differ from run_batch")
+    for f in dataclasses.fields(off.allocation):
+        check(np.array_equal(getattr(off.allocation, f.name), getattr(e0.allocation, f.name)),
+              f"replay: allocation.{f.name} differs from run_batch")
+    check(np.array_equal(rep.finish, off.ccts), "replay: CCTs differ from run_batch")
+    check(rep.realized_weighted_cct == off.total_weighted_cct,
+          "replay: weighted CCT differs from run_batch")
+    log(f"service replay of paper_default_instance(0) (one batch, no preemption, exact LP): "
+        f"bit-identical to get_pipeline('ours').run_batch (order, allocation, CCTs, weighted "
+        f"CCT {rep.realized_weighted_cct:.6g}); {time.perf_counter() - t0:.2f} s")
+
+    # (e) The long-horizon service cell, cut to a prefix, logged.
+    run = dict(SERVICE_LONG_RUN, n_batches=SERVICE_LONG_PREFIX // 8)
+    t0 = time.perf_counter()
+    sub = lp.solve_subgradient(long, iters=run["lp_iters"])
+    sub_s = time.perf_counter() - t0
+    profiled = 3
+    with EpochProfile(torch, profiled) as prof:
+        res, counts, wall = counted(lambda: stream(
+            long, **run, epoch_mode="resident", warm_start=True, validate=False))
+    check(bool((res.finish > res.arrival).all()), "long service: a coflow did not finish")
+    flows = int(np.count_nonzero(long.demands))
+    margin = stream_bound(long) * sub.objective / res.realized_weighted_cct
+    # The profiled epoch synchronizes in its window: left out of the walls.
+    plain = [e for e in res.epochs if e.index != profiled]
+    warm_lp = np.array([e.lp_wall_s for e in plain if e.warm]) * 1e3
+    warm_wall = np.array([e.wall_s for e in plain if e.warm]) * 1e3
+    log(f"service fb_full long horizon ({long.num_coflows} coflows, {flows} flows, 48 ports, "
+        f"K=4, pool 32, {run['n_batches']} batches, 900 iterations, warm 300, resident, cut "
+        f"to its first {SERVICE_LONG_PREFIX} coflows in release order): {res.num_resolves} "
+        f"epochs ({res.warm_resolves} warm), weighted CCT {res.realized_weighted_cct:.6g}, "
+        f"margin ((8K+1) x subgradient objective {sub.objective:.6g}) / weighted CCT = "
+        f"{margin:.4f} (logged, not gated; the subgradient solve {sub_s:.2f} s); wall "
+        f"{wall:.2f} s, LP {res.lp_time_s:.2f} s")
+    if warm_lp.size:
+        p50, p95, p99 = np.percentile(warm_lp, [50, 95, 99])
+        log(f"service fb_full warm re-solve ms p50 {p50:.2f} p95 {p95:.2f} p99 {p99:.2f}; "
+            f"warm-epoch wall ms p50 {np.percentile(warm_wall, 50):.2f} (epoch {profiled}, "
+            f"profiled, left out)")
+    split = stage_means(plain)
+    log(f"service fb_full per-epoch mean host s (epoch {profiled} left out): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split.items())
+        + f", epoch wall {np.mean([e.wall_s for e in plain]):.4f}; launches "
+        f"{json.dumps(counts)}; {eb.SLOT_GROW_COUNT} arena growths in this process")
+    if prof.profile is not None:
+        pwall, kernels = prof.profile
+        busy = sum(t for t, _ in kernels.values())
+        top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:12]
+        log(f"service fb_full profiled warm epoch {profiled}: wall {pwall:.4f} s, device busy "
+            f"{busy / 1e6:.4f} s ({100 * busy / 1e6 / pwall:.1f} %), "
+            f"{sum(c for _, c in kernels.values())} device kernels; launches (device us) by "
+            f"kernel: " + "; ".join(f"{k[:60]} {c} ({us:.1f})" for k, (us, c) in top))
+    else:
+        log("service fb_full profiled epoch: not measured (the stream had too few epochs)")
+    total = {k: sum(c[k] for c in launches) for k in launches[0]}
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2662,12 +3030,20 @@ def main() -> int:
     phase_engines(torch, paper, sols, paper_results["greedy"])
     lap("phase 10 (ours_ls, engines)")
 
-    # Phase 11: the kernels line (each kernel's launches on its main paths:
+    # Phase 11: the streaming service.
+    stream_counts = phase_streaming(torch)
+    lap("phase 11 (streaming)")
+
+    # Phase 12: the kernels line (each kernel's launches on its main paths:
     # the calendar kernels' and port_stats' grow by the planner's run in
-    # phase 8 and by ours_ls's runs in phase 10), then the result.
+    # phase 8, by ours_ls's runs in phase 10 and by the streams of phase 11,
+    # lp_terms_batch's by the streams' LPs), then the result.
     for name in ("pair_resolve", "port_stats"):
-        counts[name] += train_counts[name] + sum(c[name] for c in refine_counts.values())
-    flow_counts["event_resolve"] += sum(c["event_resolve"] for c in refine_counts.values())
+        counts[name] += (train_counts[name] + sum(c[name] for c in refine_counts.values())
+                         + stream_counts[name])
+    counts["lp_terms_batch"] += stream_counts["lp_terms_batch"]
+    flow_counts["event_resolve"] += (sum(c["event_resolve"] for c in refine_counts.values())
+                                     + stream_counts["event_resolve"])
     counts["lp_terms"] = single_counts["lp_terms"]
     counts["event_resolve"] = flow_counts["event_resolve"]
     counts["flash_attention"] = serve_counts["flash_attention"]

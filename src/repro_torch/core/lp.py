@@ -20,6 +20,11 @@ and the objective min sum_m w_m T_m.  Three solvers:
     instances padded to one shape, batched over the leading member axis
     (a written-out batch axis in place of ``vmap``).
 
+The streaming service's warm starts live here too: `warm_start_Y0_dense`
+(any order, default the weighted lower-bound one) and the resident warm
+state's gather and scatter on the device (`warm_gather_device`,
+`warm_scatter_device`).
+
 In both subgradient solvers the smooth annealed-logsumexp gradient is
 autograd over plain matrix products (the JAX package leaves that product
 to XLA, outside any kernel), and the hard-max objective of every step
@@ -55,6 +60,9 @@ __all__ = [
     "pack_lp_arrays",
     "solve_subgradient_batch",
     "solve_subgradient_batch_arrays",
+    "warm_start_Y0_dense",
+    "warm_gather_device",
+    "warm_scatter_device",
 ]
 
 #: Solver inputs of `pack_lp_arrays`, in `solve_subgradient_batch_arrays` order.
@@ -266,14 +274,24 @@ def global_lower_bound(
     return instance.delta + rho.amax(dim=1) / rho.new_tensor(instance.aggregate_rate)
 
 
-def _warm_start_Y0(weights: torch.Tensor, glb: torch.Tensor) -> torch.Tensor:
-    """Strict-upper-triangular f32 warm start from the weighted global
-    lower-bound order (WSPT-like); Y0[a, b] = 1 iff a precedes b, kept
-    only for a < b.
+def warm_start_Y0_dense(
+    weights: torch.Tensor,
+    glb: torch.Tensor,
+    warm_start_order: np.ndarray | torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Strict-upper-triangular f32 warm start from per-coflow tensors, on
+    their device (`repro.core.lp.warm_start_Y0_dense`).
+
+    The order defaults to the weighted global lower-bound order
+    (WSPT-like); Y0[a, b] = 1 iff a precedes b, kept only for a < b.  The
+    streaming service builds each epoch's warm start from its resident
+    per-slot vectors with it, and `pack_lp_arrays` from each instance's.
     """
     M = weights.shape[0]
-    score = weights / torch.clamp(glb, min=1e-12)
-    order = torch.argsort(-score, stable=True)
+    if warm_start_order is None:
+        score = weights / torch.clamp(glb, min=1e-12)
+        warm_start_order = torch.argsort(-score, stable=True)
+    order = torch.as_tensor(warm_start_order, dtype=torch.int64, device=weights.device)
     pos = torch.empty(M, dtype=torch.int64, device=weights.device)
     pos[order] = torch.arange(M, device=weights.device)
     return torch.triu((pos[:, None] < pos[None, :]).to(torch.float32), 1)
@@ -286,8 +304,11 @@ def _pack(
     pad_coflows: int | None,
     pad_ports: int | None,
     device: torch.device,
+    warm_start_orders: Sequence[np.ndarray | None] | None = None,
 ) -> dict[str, torch.Tensor]:
     B = len(instances)
+    if warm_start_orders is None:
+        warm_start_orders = [None] * B
     Ms = [inst.num_coflows for inst in instances]
     Ps = [2 * inst.num_ports for inst in instances]
     Mp = pad_coflows if pad_coflows is not None else max(Ms, default=0)
@@ -320,7 +341,7 @@ def _pack(
         coflow_mask[b, :M] = True
         port_mask[b, :P] = True
         w64 = torch.from_numpy(inst.weights).to(device)
-        Y0[b, :M, :M] = _warm_start_Y0(w64, glbs[b])
+        Y0[b, :M, :M] = warm_start_Y0_dense(w64, glbs[b], warm_start_orders[b])
     host = dict(
         weights=weights, releases=releases, inv_R=inv_R,
         delta_over_K=delta_over_K, coflow_mask=coflow_mask,
@@ -335,19 +356,24 @@ def pack_lp_arrays(
     instances: Sequence[CoflowInstance],
     pad_coflows: int | None = None,
     pad_ports: int | None = None,
+    warm_start_orders: Sequence[np.ndarray | None] | None = None,
     device: str | torch.device = "cuda",
 ) -> dict[str, torch.Tensor]:
     """Pad an ensemble into the batched LP solver's input tensors.
 
     Same dict, layout and values as `repro.core.lp.pack_lp_arrays`, as
     tensors on ``device``; the port statistics come from the `port_stats`
-    kernel.  ``pad_*`` default to the ensemble maxima.
+    kernel.  ``pad_*`` default to the ensemble maxima;
+    ``warm_start_orders`` gives a member's warm start from a priority
+    order in place of the weighted lower-bound order.
     """
     device = resolve_device(device)
     instances = list(instances)
     stats = instance_port_stats(instances, device)
     glbs = [global_lower_bound(i, s[0]) for i, s in zip(instances, stats)]
-    return _pack(instances, stats, glbs, pad_coflows, pad_ports, device)
+    return _pack(
+        instances, stats, glbs, pad_coflows, pad_ports, device, warm_start_orders
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -473,10 +499,12 @@ def _subgradient_run(
 def solve_subgradient(
     instance: CoflowInstance,
     iters: int = 3000,
+    warm_start_order: np.ndarray | None = None,
     device: str | torch.device = "cuda",
 ) -> LPSolution:
     """Projected-subgradient solve of one instance's ordering LP on
-    ``device``, from the weighted lower-bound warm start.
+    ``device``, from the warm start of ``warm_start_order`` (default: the
+    weighted lower-bound order).
 
     Returns a feasible solution (Y in the box, pair equalities by
     construction): its objective upper-bounds the LP optimum, within about
@@ -488,7 +516,9 @@ def solve_subgradient(
     torch.backends.cudnn.allow_tf32 = False
     ((rho, tau),) = instance_port_stats([instance], device)
     weights = torch.from_numpy(instance.weights).to(device)
-    Y0 = _warm_start_Y0(weights, global_lower_bound(instance, rho))
+    Y0 = warm_start_Y0_dense(
+        weights, global_lower_bound(instance, rho), warm_start_order
+    )
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
     completion = functools.partial(
         _completion_from_Y, p_rho=rho.to(torch.float32),
@@ -559,3 +589,61 @@ def solve_subgradient_batch(
     arrays = pack_lp_arrays(instances, device=device)
     batch = solve_subgradient_batch_arrays(arrays, iters=iters)
     return batch.unpack([inst.num_coflows for inst in instances])
+
+
+# ---------------------------------------------------------------------------
+# Resident warm state (streaming epochs)
+# ---------------------------------------------------------------------------
+#
+# The streaming service keeps one (S, S) precedence matrix on the device for
+# the life of a stream; each epoch gathers the active slots' pairwise
+# precedences into its dense warm start and scatters the solved pairs back.
+# Slot vectors are padded to S with the out-of-range index S, which the
+# reference reads as "fill" and writes as "drop".  PyTorch has neither mode,
+# and an out-of-range CUDA gather is a device-side assert, so these clip the
+# index before every gather and mask what it read, and scatter through a
+# sentinel row and column that are then cut away.
+
+
+def warm_gather_device(
+    Yw: torch.Tensor, solved: torch.Tensor, slots: torch.Tensor, default_Y0: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Warm-start gather: overwrite solved pairs of the dense Y0.
+
+    ``Yw`` (S, S) f32 and ``solved`` (S,) bool are the resident warm state;
+    ``slots`` (D,) maps dense position d to its slot (S on padded
+    positions, read as unsolved); ``default_Y0`` (D, D) f32 is the epoch's
+    cold warm start.  Returns ``(Y0, any_warm)``: strict-upper Y0 with each
+    pair solved before replaced by its last precedence, and whether any
+    pair was (a bool tensor the host reads to pick the warm budget).
+    """
+    S = Yw.shape[0]
+    inside = slots < S
+    sc = torch.where(inside, slots, 0).long()
+    prev = solved[sc] & inside
+    both = prev[:, None] & prev[None, :]
+    Ys = Yw[sc][:, sc]
+    warm_pair = torch.triu(both, 1)
+    Y0 = torch.where(warm_pair, Ys, default_Y0)
+    return torch.triu(Y0, 1), warm_pair.any()
+
+
+def warm_scatter_device(
+    Yw: torch.Tensor, slots: torch.Tensor, y: torch.Tensor
+) -> torch.Tensor:
+    """Scatter an epoch's solved precedences back into the warm state.
+
+    ``y`` (D, D) f32 is the batched solver's strict-upper solution for the
+    dense epoch.  The full precedence matrix (x_ab + x_ba = 1, zero
+    diagonal) is formed in f32 on the device and written at
+    ``(slots[a], slots[b])``; padded positions (slot S) land in a sentinel
+    row and column that are dropped.  Returns the updated (S, S) matrix.
+    """
+    S = Yw.shape[0]
+    u = torch.triu(y, 1)
+    full = u + torch.tril(1.0 - u.T, -1)
+    sc = torch.clamp(slots.long(), max=S)
+    out = torch.zeros((S + 1, S + 1), dtype=Yw.dtype, device=Yw.device)
+    out[:S, :S] = Yw
+    out[sc[:, None], sc[None, :]] = full
+    return out[:S, :S].clone()

@@ -18,8 +18,14 @@ need none, and this module uses no ``addcmul`` or ``torch.compile``.)
 
 Padding mirrors the reference: padded flow steps add 0 and keep ``lb``;
 padded cores start at `PAD_LB` with a `PAD_LB` inverse rate, so the argmin
-never picks them.  The loop costs a few launches per flow; a kernel for
-this scan has no Pallas counterpart and is later work.
+never picks them.  The order's permutation sends invalid flows to the tail,
+so the loop stops after the longest member's valid flows: the steps it
+skips would be no-ops, and only their ``core`` entries (never read) stay 0.
+That matters where most of the flow axis is free capacity (the streaming
+service's slot arena); an ensemble built to its maxima has a member that
+fills the axis, so its loop is unchanged.  The loop costs a few launches
+per flow; a kernel for this scan has no Pallas counterpart and is later
+work.
 """
 
 from __future__ import annotations
@@ -65,7 +71,8 @@ def allocate_batch_arrays(
     core = torch.zeros((B, Fp), dtype=torch.int64, device=dev)
     lbs = torch.zeros((B, Fp), dtype=torch.float64, device=dev)
     rows = torch.arange(B, device=dev)
-    for f in range(Fp):
+    live = int(valid.sum(dim=1).max()) if B and Fp else 0
+    for f in range(live):
         i = pi[:, f, None, None].expand(B, Kp, 1)
         j = pj[:, f, None, None].expand(B, Kp, 1)
         dd = size[:, f, None]

@@ -639,13 +639,19 @@ def _execute_members(
 
 
 def _run_members(
-    ensemble: EnsembleBatch, alloc: AllocationBatch, discipline: str, engine: str
+    ensemble: EnsembleBatch,
+    alloc: AllocationBatch,
+    discipline: str,
+    engine: str,
+    busy: dict | None = None,
 ):
     """The calendar over every (instance, core) member with flows.
 
-    Returns the host copies of ``alloc``'s flow fields, the per-core rates
-    and deltas, the ``(b, k, flow rows)`` members and the calendar's
-    (G, Fmax) establish / complete arrays (None without members).
+    ``busy`` (see `schedule_batch_arrays`) puts each member's phantom rows
+    at the head of its table.  Returns the host copies of ``alloc``'s flow
+    fields, the per-core rates and deltas, the ``(b, k, flow rows, phantom
+    count)`` members and the calendar's (G, Fmax) establish / complete
+    arrays (None without members), phantom rows first.
     """
     if discipline not in ("reserving", "greedy"):
         raise ValueError(f"unknown discipline {discipline!r}")
@@ -657,31 +663,48 @@ def _run_members(
     releases = ensemble.releases.cpu().numpy()
     rates = ensemble.rates.cpu().numpy()
     delta = ensemble.delta.cpu().numpy()
-    members = []  # (b, k, flow-row indices into the ordered flow axis)
+    members = []  # (b, k, flow-row indices into the ordered flow axis, phantoms)
     for b in range(ensemble.num_instances):
         for k in range(ensemble.num_cores[b]):
             idx = np.nonzero(h["valid"][b] & (h["core"][b] == k))[0]
             if idx.size:
-                members.append((b, k, idx))
+                nb = 0
+                if busy is not None and (b, k) in busy:
+                    nb = int(np.asarray(busy[b, k]["src"]).shape[0])
+                members.append((b, k, idx, nb))
     est = comp = None
     if members:
-        tabs = [
-            dict(
+        tabs = []
+        for b, k, idx, nb in members:
+            tab = dict(
                 src=h["src"][b, idx],
                 dst=h["dst"][b, idx],
                 rel=releases[b, h["coflow"][b, idx]],
                 dur=delta[b] + h["size"][b, idx] / rates[b, k],
             )
-            for b, k, idx in members
-        ]
+            if nb:
+                # Committed circuits outrank every real flow of the member.
+                ph = busy[b, k]
+                tab = {
+                    key: np.concatenate([np.asarray(ph[key], tab[key].dtype), tab[key]])
+                    for key in ("src", "dst", "rel", "dur")
+                }
+            tabs.append(tab)
         est, comp = _execute_members(
             tabs,
             max(ensemble.num_ports),
             discipline,
             ensemble.device,
-            labels=[f"instance {b}, core {k}" for b, k, _ in members],
+            labels=[f"instance {b}, core {k}" for b, k, _, _ in members],
             engine=engine,
         )
+        for g, (b, k, _, nb) in enumerate(members):
+            if nb and not np.array_equal(est[g, :nb], tabs[g]["rel"][:nb]):
+                raise AssertionError(
+                    f"instance {b}, core {k}: committed phantom circuits did not "
+                    "establish at their release; busy tables must be "
+                    "port-exclusive with rel at the epoch time"
+                )
     return h, rates, delta, members, est, comp
 
 
@@ -702,7 +725,7 @@ def cct_batch_arrays(
     """
     h, _, _, members, _, comp = _run_members(ensemble, alloc, discipline, engine)
     cct = np.zeros((ensemble.num_instances, ensemble.pad_coflows))
-    for g, (b, _k, idx) in enumerate(members):
+    for g, (b, _k, idx, _nb) in enumerate(members):
         np.maximum.at(cct[b], h["coflow"][b, idx], comp[g, : idx.shape[0]])
     return cct
 
@@ -712,6 +735,7 @@ def schedule_batch_arrays(
     alloc: AllocationBatch,
     discipline: str = "reserving",
     engine: str = "kernel",
+    busy: dict[tuple[int, int], dict[str, np.ndarray]] | None = None,
 ) -> list[tuple[list[CoreSchedule], np.ndarray]]:
     """Circuit-schedule straight off the padded tensors with the
     ``engine`` calendar (``"kernel"``, ``"jax"``, ``"wide"`` or
@@ -720,11 +744,21 @@ def schedule_batch_arrays(
     The `AllocationBatch` flow axis is already in scheduling priority
     order, so each (instance, core) member table is a stable partition of
     it.  Returns one ``(core_schedules, ccts)`` pair per instance.
+
+    ``busy`` (the streaming service's committed circuits) maps ``(b, k)``
+    to phantom tables ``dict(src=, dst=, rel=, dur=)``: circuits already
+    running on core ``k`` of instance ``b``.  They go at the head of the
+    member's table, so they claim their port pairs first; being
+    port-exclusive, each establishes exactly at its ``rel`` (asserted) and
+    blocks its ports for ``dur``.  Their rows are cut off before the
+    `CoreSchedule`s are built, and an entry whose member has no real flows
+    is ignored.  They count in the pair calendar's int32 keys.
+    ``busy=None`` leaves every result as it was.
     """
     h, rates, delta, members, est, comp = _run_members(
-        ensemble, alloc, discipline, engine
+        ensemble, alloc, discipline, engine, busy
     )
-    by_member = {(b, k): g for g, (b, k, _) in enumerate(members)}
+    by_member = {(b, k): g for g, (b, k, _, _) in enumerate(members)}
     out = []
     for b in range(ensemble.num_instances):
         schedules = []
@@ -736,7 +770,7 @@ def schedule_batch_arrays(
                 zi = np.zeros(0, dtype=np.int64)
                 schedules.append(CoreSchedule(zi, zi, zi, z, z, z, rate, dl))
                 continue
-            idx = members[g][2]
+            _, _, idx, nb = members[g]
             F = idx.shape[0]
             schedules.append(
                 CoreSchedule(
@@ -744,8 +778,8 @@ def schedule_batch_arrays(
                     src=h["src"][b, idx],
                     dst=h["dst"][b, idx],
                     size=h["size"][b, idx],
-                    establish=est[g, :F].copy(),
-                    complete=comp[g, :F].copy(),
+                    establish=est[g, nb:nb + F].copy(),
+                    complete=comp[g, nb:nb + F].copy(),
                     rate=rate,
                     delta=dl,
                 )

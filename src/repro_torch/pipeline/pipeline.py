@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import types
 from typing import Any, Sequence
 
 import numpy as np
@@ -51,7 +52,28 @@ from repro_torch.pipeline.refine import (
 )
 from repro_torch.pipeline.spec import SchemeSpec, get_scheme
 
-__all__ = ["Pipeline", "build_pipeline", "get_pipeline"]
+__all__ = ["Pipeline", "build_pipeline", "get_pipeline", "order_view"]
+
+
+def order_view(
+    weights: torch.Tensor,
+    glb: torch.Tensor,
+    releases: torch.Tensor,
+    coflow_mask: torch.Tensor,
+) -> types.SimpleNamespace:
+    """The least batch an order stage's ``order_batch`` accepts.
+
+    Every `order_batch` reads four per-coflow fields of the ensemble --
+    ``weights``, ``glb``, ``releases`` ((B, Mp) f64 tensors) and
+    ``coflow_mask`` -- besides the LP completion passed apart.  A caller
+    that keeps its own resident tensors (the streaming service's slot pool,
+    gathered on the device to the dense convention) runs the same ordering
+    code as `run_batch` through this view.  Masked entries sort to the
+    tail in index order, as in a full batch.
+    """
+    return types.SimpleNamespace(
+        weights=weights, glb=glb, releases=releases, coflow_mask=coflow_mask
+    )
 
 #: Reserved `stage_cache` keys: the fingerprint of the ensemble the cache
 #: is bound to, and the `EnsembleBatch` built once for it.

@@ -53,8 +53,9 @@ def test_new_modules_are_checked():
     and the baselines' oracles and stages (BvN, EPS, allocation, circuit,
     scheduler, stages), and refinement, the calendar's executors and the
     collective planner (localsearch, refine, batch_circuit, pipeline,
-    spec, ensemble_batch, planner) are among the files the syntax check
-    reads."""
+    spec, ensemble_batch, planner), and the streaming service and its
+    arrival generators (pool, service, arrivals, results) are among the
+    files the syntax check reads."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in (
         "core/lp.py", "core/ordering.py", "core/lower_bounds.py", "core/theory.py",
@@ -69,6 +70,8 @@ def test_new_modules_are_checked():
         "core/localsearch.py", "pipeline/refine.py", "pipeline/batch_circuit.py",
         "pipeline/pipeline.py", "pipeline/spec.py", "pipeline/ensemble_batch.py",
         "collectives/__init__.py", "collectives/planner.py",
+        "streaming/__init__.py", "streaming/pool.py", "streaming/service.py",
+        "traffic/arrivals.py", "experiments/results.py",
     ):
         assert f"src/repro_torch/{mod}" in names
 
@@ -83,7 +86,9 @@ def test_import_loads_no_jax():
         "repro_torch.kernels.quant, repro_torch.runtime.compression, "
         "repro_torch.optim, repro_torch.data.pipeline, repro_torch.launch.train, "
         "repro_torch.core.bvn, repro_torch.core.eps, repro_torch.core.localsearch, "
-        "repro_torch.pipeline.refine, repro_torch.collectives.planner; "
+        "repro_torch.pipeline.refine, repro_torch.collectives.planner, "
+        "repro_torch.streaming, repro_torch.traffic.arrivals, "
+        "repro_torch.experiments.results; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -106,7 +111,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.launch.serve import main, serve
     from repro_torch.models import build_model
     from repro_torch.collectives.planner import GradientBucket, plan
+    from repro_torch.experiments import stream
     from repro_torch.pipeline import build_ensemble_batch, get_pipeline
+    from repro_torch.pipeline.ensemble_batch import build_slot_pool_batch
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_arch("gemma3-1b").reduced()
@@ -145,6 +152,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: get_pipeline("ours", circuit_backend="loop").run_batch([inst], [sol]),
         lambda: plan([GradientBucket("b0", 1 << 20, 0.0)]),
         lambda: train.main(["--arch", "gemma3-1b", "--steps", "1", "--plan-collectives"]),
+        lambda: stream(inst),
+        lambda: stream(inst, lp_method="exact"),
+        lambda: stream(inst, lp_method="exact", epoch_mode="rebuild", pool_size=2),
+        lambda: build_slot_pool_batch(4, 2, inst.rates, inst.delta),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

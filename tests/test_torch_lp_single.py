@@ -189,7 +189,7 @@ def test_warm_start_matches_reference():
     inst = from_reference(ref, "cpu")
     ((rho, _),) = port_lp.instance_port_stats([inst], torch.device("cpu"))
     w = torch.from_numpy(inst.weights)
-    Y0 = port_lp._warm_start_Y0(w, port_lp.global_lower_bound(inst, rho))
+    Y0 = port_lp.warm_start_Y0_dense(w, port_lp.global_lower_bound(inst, rho))
     assert Y0.numpy().tobytes() == ref_lp._warm_start_Y0(ref, None).tobytes()
 
 
