@@ -190,9 +190,34 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    warm-epoch wall, the mean host seconds a stage (`EpochRecord.stage_s`:
    slot writes, LP, order, allocation, calendar), and one profiled warm
    epoch's busy share and launches (left out of the walls);
-12. the ``kernels`` JSON line (the calendar kernels' and `port_stats`'
-   launches summed over phases 3, 8, 10 and 11, `lp_terms_batch`'s over
-   phases 3 and 11), then ``{"ok": true, "device": ...}`` last.
+12. the experiment fabric (`repro_torch.experiments.sweep`, `SweepCache`,
+   the runner) on the card, results and caches in a temporary directory:
+   (a) Fig. 3, a cached ``sweep`` of phase 3's 32 paper-default instances
+   over ``PAPER_SCHEMES`` and ``ours_ls`` with the batch LP (3000
+   iterations): cells valid, ``ours_ls`` <= ours, ours <= (8K+1) x the LP
+   objective, Fig. 3's four claims on the means, launch counts; its LP
+   solutions against phase 3's bit for bit (then every cell equals phase
+   9's; else each scheme's `run_batch` on the sweep's own solutions); a
+   replay computes no cell, launches no kernel and writes byte-identical
+   rows; seed 99 in place of one instance computes exactly its 6 cells,
+   valid and equal to each scheme's `run_batch` on the host, and its
+   one-member LP bucket's `lp_terms_batch` and `port_stats` are held
+   against their twins at that shape;
+   (b) Fig. 6, ours with the exact LP and ``certify=True`` at K = 3 and 5,
+   zero and trace releases: ratios within their bounds, reserving
+   certificates hold, one ensemble build for both disciplines, cells equal
+   `run_batch` on the host; (c) Fig. 5, the grid N = 8, 16, 32 x K = 3, 5
+   (M = 100, delta = 8, imbalanced rates, 800 iterations) as one ensemble:
+   3 LP buckets, one build, `lp_terms_batch` = buckets x 802, cells
+   equal each scheme's `run_batch` on the host, and each bucket's
+   `lp_terms_batch` and each stack of one port count's demands'
+   `port_stats` held against their twins at their shapes; (d) the
+   runner on the reference runner test's 7 cells: shards 0 and 1 of 2
+   sharing a cache merge to one sweep's rows byte for byte, a re-run
+   computes none, `run_distributed` in one process equals one sweep;
+13. the ``kernels`` JSON line (the calendar kernels' and `port_stats`'
+   launches summed over phases 3, 8, 10, 11 and 12, `lp_terms_batch`'s over
+   phases 3, 11 and 12), then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero as well without a CUDA device.
@@ -2275,7 +2300,7 @@ def phase_schemes(torch, label, instances, sols, ours_results):
             f"{row['wcct']:.4f}, p95 / ours {row['p95']:.4f}, p99 / ours "
             f"{row['p99']:.4f}" + (f" (gate {FIG3_TEXT[scheme]})" if scheme in FIG3_GATES else ""))
     log(f"{label} fig3 table: " + json.dumps(table))
-    return table
+    return table, results
 
 
 def phase_eps(torch, seeds, positive, positive_sol):
@@ -2633,6 +2658,28 @@ def check_same_stream(ctx, a, b):
         check(same, f"{ctx}: epoch {e.index} differs")
 
 
+def hold_lp_terms_batch(torch, label, arrays):
+    """`lp_terms_batch` on the packed LP ``arrays`` (Y0 perturbed into the
+    box, as phase 2 does) against its twin within rtol(M); logs its plan
+    and returns the max abs err."""
+    from repro_torch.core import lp
+    from repro_torch.kernels import lp_terms as lt
+    from repro_torch.kernels.common import sm_count
+
+    g = torch.Generator().manual_seed(7)
+    Y = arrays["Y0"] + 0.3 * torch.rand(arrays["Y0"].shape, generator=g).to(arrays["Y0"].device)
+    X = lp._precedence_X(torch.clamp(Y, 0.0, 1.0), arrays["coflow_mask"]).contiguous()
+    args = (X, arrays["p_rho"], arrays["p_tau"], arrays["inv_R"], arrays["delta_over_K"])
+    B, M, P = args[1].shape
+    got = lt.lp_terms_batch(*args)
+    torch.cuda.synchronize()
+    err = check_lp_terms(f"lp_terms_batch {label} (B={B}, M={M}, P={P})", got,
+                         lt.lp_terms_batch_plain(*args), M, lt.rtol(M))
+    log(f"lp_terms_batch {label} (B={B}, M={M}, P={P}): plan "
+        f"{json.dumps(lp_plan(lt.plan(B, M, P, sm_count(X.device))))}")
+    return err
+
+
 def check_stream_kernels(torch, label, inst, S):
     """A stream's `lp_terms_batch` and `port_stats` held against their
     twins at its own shapes: the LP of a full pool, (1, S, 2N), as the
@@ -2641,26 +2688,13 @@ def check_stream_kernels(torch, label, inst, S):
     does), within rtol(S); and `update_slots`' stack of their (S, N, N)
     demands, bit for bit under the plan and every tiling."""
     from repro_torch.core import lp
-    from repro_torch.kernels import lp_terms as lt
-    from repro_torch.kernels.common import sm_count
 
-    dev = torch.device("cuda")
     first = release_prefix(inst, S)
     arrays = lp.pack_lp_arrays([first], pad_coflows=S, pad_ports=2 * inst.num_ports,
-                               device=dev)
-    g = torch.Generator().manual_seed(7)
-    Y = arrays["Y0"] + 0.3 * torch.rand(arrays["Y0"].shape, generator=g).to(dev)
-    X = lp._precedence_X(torch.clamp(Y, 0.0, 1.0), arrays["coflow_mask"]).contiguous()
-    args = (X, arrays["p_rho"], arrays["p_tau"], arrays["inv_R"], arrays["delta_over_K"])
-    B, M, P = args[1].shape
-    got = lt.lp_terms_batch(*args)
-    torch.cuda.synchronize()
-    err = check_lp_terms(f"lp_terms_batch {label} stream (B={B}, M={M}, P={P})", got,
-                         lt.lp_terms_batch_plain(*args), M, lt.rtol(M))
-    log(f"lp_terms_batch {label} stream (B={B}, M={M}, P={P}): plan "
-        f"{json.dumps(lp_plan(lt.plan(B, M, P, sm_count(dev))))}")
+                               device=torch.device("cuda"))
+    err = hold_lp_terms_batch(torch, f"{label} stream", arrays)
     hold_port_stats(torch, f"{label} update_slots stack",
-                    torch.from_numpy(np.ascontiguousarray(first.demands)).to(dev))
+                    torch.from_numpy(np.ascontiguousarray(first.demands)).to("cuda"))
     return err
 
 
@@ -2891,6 +2925,397 @@ def phase_streaming(torch):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the experiment fabric
+# ---------------------------------------------------------------------------
+
+# The imbalanced core rates of the reference's Fig. 4-6 scripts
+# (`benchmarks/fig4_cdf.py`, RATES[K]["imbalanced"]).
+FIG_RATES = {3: (10.0, 20.0, 30.0), 5: (5.0, 5.0, 10.0, 15.0, 25.0)}
+# Fig. 5's grid (M = 100, delta = 8, seed 0) cut to three port counts and
+# two core counts, at the reference's quick iteration count.
+FIG5_PORTS = (8, 16, 32)
+FIG5_KS = (3, 5)
+FIG5_ITERS = 800
+# Fig. 6 (delta = 8, seed 0): both release kinds at two core counts.
+FIG6_KS = (3, 5)
+# (a)'s perturbed sweep: this instance of the 32 takes seed 99.
+FIG3_PERTURBED = 5
+# The cells of the reference's runner test (`tests/test_runner.py`).
+RUNNER_SPECS = [{"seed": 50 + i, "num_coflows": 8 + 2 * (i % 3), "num_ports": 4}
+                for i in range(7)]
+RUNNER_KW = dict(schemes=("ours", "wspt_order"), lp_method="exact")
+DIST_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+
+
+def runner_make(spec):
+    from repro_torch.traffic.instances import random_instance
+
+    return random_instance(num_coflows=spec["num_coflows"], num_ports=spec["num_ports"],
+                           num_cores=2, seed=spec["seed"])
+
+
+def expected_port_stats(instances):
+    """`port_stats` launches of a sweep over ``instances`` with the batch
+    LP: one per distinct port count per LP bucket, and in the one ensemble
+    build the schemes share."""
+    from repro_torch.experiments import build_buckets
+
+    return sum(len({instances[i].num_ports for i in bk.indices})
+               for bk in build_buckets(instances)) + len({i.num_ports for i in instances})
+
+
+def check_sweep_launches(label, counts, lp_steps, port_stats):
+    """A card sweep's launches: `lp_terms_batch` ``lp_steps``, `port_stats`
+    ``port_stats``, `pair_resolve` once per pair-calendar round (``"auto"``
+    resolves to the pair calendar on a card), no flow-calendar round, no
+    per-instance LP kernel."""
+    from repro_torch.pipeline import batch_circuit
+
+    rounds = batch_circuit.ROUNDS["kernel"]
+    check(counts["lp_terms_batch"] == lp_steps,
+          f"{label}: lp_terms_batch launched {counts['lp_terms_batch']} times, "
+          f"expected {lp_steps}")
+    check(counts["port_stats"] == port_stats,
+          f"{label}: port_stats launched {counts['port_stats']} times, expected {port_stats}")
+    check(counts["pair_resolve"] == rounds > 0,
+          f"{label}: pair_resolve launched {counts['pair_resolve']} times, expected "
+          f"{rounds} (one per calendar round)")
+    check(counts["event_resolve"] == batch_circuit.ROUNDS["jax"] == 0,
+          f"{label}: event_resolve launched {counts['event_resolve']} times")
+    check(counts["lp_terms"] == 0, f"{label}: lp_terms launched {counts['lp_terms']} times")
+
+
+def check_cells(label, res, instances):
+    """Every cell of a fresh sweep: finite CCTs of the instance's length,
+    weighted CCT at least the LP objective / 1.005, and ours within (8K+1)
+    x the LP objective.  (The sweep validated every kept schedule.)"""
+    for rec, inst in zip(res.records, instances):
+        obj = rec.lp.objective
+        for s, r in rec.results.items():
+            check(np.isfinite(r.ccts).all() and r.ccts.shape == (inst.num_coflows,),
+                  f"{label} {s} instance {rec.index}: bad CCT vector")
+            check(r.total_weighted_cct >= obj / 1.005,
+                  f"{label} {s} instance {rec.index}: weighted CCT {r.total_weighted_cct} "
+                  f"below LP objective {obj} / 1.005")
+        limit = (8 * inst.num_cores + 1) * obj
+        check(rec.results["ours"].total_weighted_cct <= limit,
+              f"{label} instance {rec.index}: ours {rec.results['ours'].total_weighted_cct} "
+              f"> (8K+1) x LP {limit}")
+
+
+def check_sweep_kernels(torch, label, instances):
+    """A batch-LP sweep's kernels against their twins at the shapes it
+    gives them: each LP bucket's `lp_terms_batch`, packed as
+    `solve_ensemble_lp` packs it, within rtol(M); `port_stats` on each
+    stack of one port count's demands (each bucket's LP, and the ensemble
+    build over all ``instances``), bit for bit under the plan and every
+    tiling.  Run after the sweep's counts are read."""
+    from repro_torch.core import lp
+    from repro_torch.experiments import build_buckets
+
+    err = 0.0
+    groups = []
+    for bk in build_buckets(instances):
+        members = [instances[i] for i in bk.indices]
+        arrays = lp.pack_lp_arrays(members, pad_coflows=bk.num_coflows,
+                                   pad_ports=bk.num_flat_ports, device=torch.device("cuda"))
+        err = max(err, hold_lp_terms_batch(torch, f"{label} bucket", arrays))
+        groups.append(bk.indices)
+    groups.append(range(len(instances)))
+    stacks = {}
+    for idx in groups:
+        for n in sorted({instances[i].num_ports for i in idx}):
+            stacks.setdefault(tuple(i for i in idx if instances[i].num_ports == n), None)
+    for idx in stacks:
+        d = torch.from_numpy(np.concatenate([instances[i].demands for i in idx])).to("cuda")
+        hold_port_stats(torch, f"{label} stack of instances {list(idx)}", d)
+    return err
+
+
+def check_host_cells(torch, label, records, instances, schemes):
+    """Each scheme's cells of ``records`` bit for bit against its
+    `run_batch` on the host on the same LP solutions (one stage cache, as
+    the sweep shares one; the calendar on the host's NumPy pair engine,
+    ``"wide"``, which phase 10 holds to the card's bits and which takes
+    half the host time of the kernels' plain twins); returns the host's
+    seconds."""
+    from repro_torch.pipeline import get_pipeline
+
+    t0 = time.perf_counter()
+    sols = [rec.lp for rec in records]
+    cache = {}
+    for s in schemes:
+        host = get_pipeline(s, circuit_engine="wide").run_batch(
+            instances, lp_solutions=sols, validate=True, device="cpu", stage_cache=cache)
+        for rec, h in zip(records, host):
+            check_same_schedule(f"{label} {s} instance {rec.index} card vs host",
+                                rec.results[s], h)
+    return time.perf_counter() - t0
+
+
+def timed_sweep(torch, instances, **kw):
+    """`sweep` with every count at 0 before it; (result, wall s, counts)."""
+    from repro_torch.experiments import sweep
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sweep(instances, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0, read_counts()
+
+
+def fabric_fig3(torch, paper, sols, scheme_results, root):
+    """(a) Fig. 3: a fresh cached sweep of the 32 paper instances over the
+    paper's schemes and ours_ls, its replay, and a perturbed sweep."""
+    from repro_torch.experiments import build_buckets, group_mean
+    from repro_torch.pipeline import PAPER_SCHEMES, batch_circuit, get_pipeline
+    from repro_torch.traffic.instances import paper_default_instance
+
+    schemes = PAPER_SCHEMES + ("ours_ls",)
+    metas = [{"seed": s} for s in SEEDS]
+    kw = dict(schemes=schemes, lp_method="batch", lp_iters=LP_ITERS, metas=metas)
+    n_cells = len(paper) * len(schemes)
+    res, wall, counts = timed_sweep(torch, paper, cache=root, **kw)
+    check(res.cache_stats == dict(cells=n_cells, hits=0, misses=n_cells, computed=n_cells),
+          f"fabric fig3: fresh cache stats {res.cache_stats}")
+    check_sweep_launches("fabric fig3", counts, len(build_buckets(paper)) * (LP_ITERS + 2),
+                         expected_port_stats(paper))
+    check_cells("fabric fig3", res, paper)
+    for rec in res.records:
+        check(rec.results["ours_ls"].total_weighted_cct
+              <= rec.results["ours"].total_weighted_cct,
+              f"fabric fig3 instance {rec.index}: ours_ls above ours")
+    same_lp = all(rec.lp.objective == s.objective
+                  and rec.lp.completion.tobytes() == s.completion.tobytes()
+                  for rec, s in zip(res.records, sols))
+    if same_lp:
+        for s in PAPER_SCHEMES:
+            for rec, want in zip(res.records, scheme_results[s]):
+                check_same_schedule(f"fabric fig3 {s} vs phase 9 instance {rec.index}",
+                                    rec.results[s], want)
+        log("fabric fig3: the sweep's LP solutions equal phase 3's bit for bit; every "
+            "cell of the paper's schemes equals phase 9's")
+    else:
+        gap = max(abs(rec.lp.objective - s.objective) / s.objective
+                  for rec, s in zip(res.records, sols))
+        own = [rec.lp for rec in res.records]
+        for s in schemes:
+            want = get_pipeline(s).run_batch(paper, lp_solutions=own, validate=True)
+            for rec, w in zip(res.records, want):
+                check_same_schedule(f"fabric fig3 {s} vs run_batch instance {rec.index}",
+                                    rec.results[s], w)
+        log(f"fabric fig3: the sweep's LP solutions differ from phase 3's (largest "
+            f"relative objective gap {gap:.3e}); every cell equals run_batch on the "
+            f"sweep's own solutions")
+    means = group_mean(res.rows(), ["scheme"], ["norm_weighted_cct", "norm_p95", "norm_p99"])
+    for row in means:
+        s = row["scheme"]
+        if s in FIG3_GATES:
+            check(FIG3_GATES[s](row["norm_weighted_cct"]),
+                  f"fabric fig3: Fig. 3 claim {s} {FIG3_TEXT[s]} fails: "
+                  f"{row['norm_weighted_cct']}")
+    # Each scheme's share after the ordering (allocation, refinement and
+    # calendar, summed over its results' `wall_time_s`; an allocation the
+    # stage cache served counts for the scheme that computed it).
+    split = {s: sum(rec.results[s].wall_time_s for rec in res.records) for s in schemes}
+    log(f"fabric fig3: fresh sweep of {len(paper)} instances x {len(schemes)} schemes: wall "
+        f"{wall:.4f} s, LP {res.lp_time_s:.4f} s, by scheme "
+        f"{json.dumps({k: round(v, 4) for k, v in split.items()})}, the rest (keys, build, "
+        f"ordering, validation, cache writes) {wall - res.lp_time_s - sum(split.values()):.4f} s; "
+        f"{json.dumps(res.cache_stats)}; calendar rounds {batch_circuit.ROUNDS['kernel']}; "
+        f"launches {json.dumps(counts)}")
+    log("fabric fig3 means (scheme, weighted CCT / ours, p95 / ours, p99 / ours): "
+        + "; ".join(f"{r['scheme']} {r['norm_weighted_cct']:.4f} {r['norm_p95']:.4f} "
+                    f"{r['norm_p99']:.4f}" for r in means))
+
+    # The replay: every cell a hit, no kernel, the same bytes.
+    replay, replay_wall, replay_counts = timed_sweep(torch, paper, cache=root, **kw)
+    check(replay.cache_stats == dict(cells=n_cells, hits=n_cells, misses=0, computed=0),
+          f"fabric fig3 replay: cache stats {replay.cache_stats}")
+    check(not any(replay_counts.values()) and not any(batch_circuit.ROUNDS.values()),
+          f"fabric fig3 replay launched kernels: {replay_counts} {batch_circuit.ROUNDS}")
+    paths = [r.save(f"fabric_fig3_{tag}") for r, tag in ((res, "fresh"), (replay, "replay"))]
+    for a, b in zip(*paths):
+        check(Path(a).read_bytes() == Path(b).read_bytes(),
+              f"fabric fig3 replay: {b} differs from {a}")
+    check(json.dumps(replay.rows()) == json.dumps(res.rows()),
+          "fabric fig3 replay: rows differ")
+    log(f"fabric fig3 replay: {n_cells} hits, 0 computed, no kernel launched, rows "
+        f"byte-identical (JSON and CSV); wall {replay_wall:.4f} s")
+
+    # One instance replaced: its cells alone are computed.
+    pert = list(paper)
+    pert[FIG3_PERTURBED] = paper_default_instance(seed=99)
+    pmetas = list(metas)
+    pmetas[FIG3_PERTURBED] = {"seed": 99}
+    pres, pwall, pcounts = timed_sweep(torch, pert, cache=root, **{**kw, "metas": pmetas})
+    check(pres.cache_stats == dict(cells=n_cells, hits=n_cells - len(schemes),
+                                   misses=len(schemes), computed=len(schemes)),
+          f"fabric fig3 perturbed: cache stats {pres.cache_stats}")
+    check_sweep_launches("fabric fig3 perturbed", pcounts, LP_ITERS + 2,
+                         expected_port_stats([pert[FIG3_PERTURBED]]))
+    check_cells("fabric fig3 perturbed", pres, pert)
+    keep = [r for r in res.rows() if r["instance"] != FIG3_PERTURBED]
+    check(json.dumps([r for r in pres.rows() if r["instance"] != FIG3_PERTURBED])
+          == json.dumps(keep), "fabric fig3 perturbed: the other instances' rows changed")
+    log(f"fabric fig3 perturbed (instance {FIG3_PERTURBED} seed 99): "
+        f"{json.dumps(pres.cache_stats)}; wall {pwall:.4f} s, LP {pres.lp_time_s:.4f} s; "
+        f"launches {json.dumps(pcounts)}")
+    host_s = check_host_cells(torch, "fabric fig3 perturbed", [pres.records[FIG3_PERTURBED]],
+                              [pert[FIG3_PERTURBED]], schemes)
+    check_sweep_kernels(torch, "fabric fig3 perturbed", [pert[FIG3_PERTURBED]])
+    log(f"fabric fig3 perturbed: its {len(schemes)} cells equal run_batch on the host "
+        f"({host_s:.4f} s on the host)")
+    return [counts, pcounts], dict(fresh_s=wall, lp_s=res.lp_time_s, replay_s=replay_wall,
+                                   perturbed_s=pwall, perturbed_lp_s=pres.lp_time_s,
+                                   perturbed_host_s=host_s)
+
+
+def fabric_fig6(torch):
+    """(b) Fig. 6: ours with the exact LP and certificates."""
+    from repro_torch.pipeline import ensemble_batch
+    from repro_torch.traffic.instances import sample_instance
+
+    insts, metas = [], []
+    for K in FIG6_KS:
+        for release in ("zero", "trace"):
+            insts.append(sample_instance(rates=FIG_RATES[K], delta=8.0, seed=0, release=release))
+            metas.append({"K": K, "delta": 8.0, "release": release})
+    builds = ensemble_batch.BUILD_COUNT
+    res, wall, counts = timed_sweep(torch, insts, schemes=("ours",), lp_method="exact",
+                                    certify=True, metas=metas)
+    check(ensemble_batch.BUILD_COUNT - builds == 1,
+          f"fabric fig6: {ensemble_batch.BUILD_COUNT - builds} ensembles built, expected 1 "
+          f"(greedy and reserving share it)")
+    check_sweep_launches("fabric fig6", counts, 0, len({i.num_ports for i in insts}))
+    check_cells("fabric fig6", res, insts)
+    for row in res.rows():
+        check(row["approx_ratio"] <= row["bound"],
+              f"fabric fig6 {row}: ratio above its bound")
+        check(row["certified_reserving"] is True, f"fabric fig6 {row}: not certified")
+    check_host_cells(torch, "fabric fig6", res.records, insts, ("ours",))
+    log(f"fabric fig6: {len(insts)} instances, exact LP, certified; wall {wall:.4f} s "
+        f"(LP {res.lp_time_s:.4f} s); one ensemble build; cells equal run_batch on the "
+        f"host; launches {json.dumps(counts)}; (K, release, ratio, reserving ratio, bound): "
+        + "; ".join(f"{r['K']} {r['release']} {r['approx_ratio']:.4f} "
+                    f"{r['approx_ratio_reserving']:.4f} {r['bound']:.0f}" for r in res.rows()))
+    return [counts], dict(fig6_s=wall, fig6_lp_s=res.lp_time_s)
+
+
+def fabric_fig5(torch):
+    """(c) Fig. 5: a mixed (K, N) grid as one ensemble."""
+    from repro_torch.experiments import build_buckets
+    from repro_torch.pipeline import PAPER_SCHEMES, ensemble_batch
+    from repro_torch.traffic.instances import sample_instance
+
+    insts, metas = [], []
+    for K in FIG5_KS:
+        for N in FIG5_PORTS:
+            insts.append(sample_instance(num_ports=N, rates=FIG_RATES[K], seed=0))
+            metas.append({"K": K, "N": N})
+    buckets = build_buckets(insts)
+    check(len(buckets) == len(FIG5_PORTS),
+          f"fabric fig5: {len(buckets)} LP buckets, expected {len(FIG5_PORTS)}")
+    builds = ensemble_batch.BUILD_COUNT
+    res, wall, counts = timed_sweep(torch, insts, schemes=PAPER_SCHEMES, lp_method="batch",
+                                    lp_iters=FIG5_ITERS, metas=metas)
+    check(ensemble_batch.BUILD_COUNT - builds == 1,
+          "fabric fig5: the schemes did not run mixed N and K in one run_batch")
+    check_sweep_launches("fabric fig5", counts, len(buckets) * (FIG5_ITERS + 2),
+                         expected_port_stats(insts))
+    check_cells("fabric fig5", res, insts)
+    host_s = check_host_cells(torch, "fabric fig5", res.records, insts, PAPER_SCHEMES)
+    check_sweep_kernels(torch, "fabric fig5", insts)
+    table = []
+    for rec in res.records:
+        nw = rec.normalized()
+        table.append((rec.meta["K"], rec.meta["N"], nw["wspt_order"], nw["load_only"],
+                      nw["sunflow_s"], nw["bvn_s"]))
+    log(f"fabric fig5: {len(insts)} instances in {len(buckets)} LP buckets, one ensemble; "
+        f"wall {wall:.4f} s (LP {res.lp_time_s:.4f} s); launches {json.dumps(counts)}; "
+        f"cells equal run_batch on the host ({host_s:.4f} s on the host); "
+        "(K, N, WSPT, LOAD, SUN, BvN): "
+        + "; ".join(f"{k} {n} {a:.4f} {b:.4f} {c:.4f} {d:.4f}" for k, n, a, b, c, d in table))
+    return [counts], dict(fig5_s=wall, fig5_lp_s=res.lp_time_s, fig5_host_s=host_s)
+
+
+def fabric_runner(torch, work):
+    """(d) The runner: two shards sharing a cache, merged; a re-run; one
+    process through `run_distributed`."""
+    import os
+
+    from repro_torch.experiments import (
+        merge_shards, results_dir, run_distributed, run_shard, sweep,
+    )
+
+    t0 = time.perf_counter()
+    reset_counts()
+    specs = RUNNER_SPECS
+    single = sweep([runner_make(s) for s in specs],
+                   metas=[dict(s, cell=i) for i, s in enumerate(specs)], **RUNNER_KW)
+    want = json.dumps(json.loads(json.dumps(single.rows(), default=float)))
+    cache = os.path.join(work, "runner_cache")
+    for shard in range(2):
+        run_shard(specs, runner_make, name="fabric_runner", shard=shard, num_shards=2,
+                  cache=cache, **RUNNER_KW)
+    jpath, _ = merge_shards("fabric_runner", 2)
+    check(json.dumps(json.loads(Path(jpath).read_text())) == want,
+          "fabric runner: merged shards differ from one sweep")
+    again = run_shard(specs, runner_make, shard=1, num_shards=2, cache=cache, **RUNNER_KW)
+    check(again.cache_stats["computed"] == 0,
+          f"fabric runner: shard 1 re-run computed {again.cache_stats}")
+    run_distributed(specs, runner_make, name="fabric_distributed", **RUNNER_KW)
+    dpath = Path(results_dir()) / "fabric_distributed.json"
+    check(json.dumps(json.loads(dpath.read_text())) == want,
+          "fabric runner: run_distributed in one process differs from one sweep")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    wall = time.perf_counter() - t0
+    log(f"fabric runner: {len(specs)} cells x 2 schemes; shards 0 and 1 of 2 merged equal "
+        f"one sweep, byte for byte; shard 1 re-run computed 0; run_distributed (one "
+        f"process) equals one sweep; {wall:.4f} s; launches {json.dumps(counts)}")
+    return [counts], dict(runner_s=wall)
+
+
+def phase_fabric(torch, paper, sols, scheme_results):
+    """The experiment fabric on the card (see the module docstring, 12).
+    Results and caches go to a temporary directory, removed after."""
+    import os
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_fabric_")
+    keys = ("REPRO_RESULTS", "REPRO_CACHE") + DIST_ENV
+    saved = {k: os.environ.get(k) for k in keys}
+    os.environ["REPRO_RESULTS"] = os.path.join(work, "results")
+    os.environ["REPRO_CACHE"] = os.path.join(work, "cache")
+    for k in DIST_ENV:
+        os.environ.pop(k, None)
+    launches, times = [], {}
+    try:
+        for part in (
+            lambda: fabric_fig3(torch, paper, sols, scheme_results,
+                                os.path.join(work, "fig3_cache")),
+            lambda: fabric_fig6(torch),
+            lambda: fabric_fig5(torch),
+            lambda: fabric_runner(torch, work),
+        ):
+            c, t = part()
+            launches.extend(c)
+            times.update(t)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(work, ignore_errors=True)
+    log("fabric seconds: " + json.dumps({k: round(v, 4) for k, v in times.items()}))
+    return {k: sum(c[k] for c in launches) for k in launches[0]}
+
+
 def main() -> int:
     import torch
 
@@ -3017,7 +3442,8 @@ def main() -> int:
 
     # Phase 9: the paper's schemes on both ensembles with phase 3's LP
     # solutions, then EPS on four delta = 0 instances.
-    phase_schemes(torch, "schemes paper default", paper, sols, paper_results["greedy"])
+    _, scheme_results = phase_schemes(torch, "schemes paper default", paper, sols,
+                                      paper_results["greedy"])
     phase_schemes(torch, "schemes trace releases", trace, trace_sols,
                   trace_results["greedy"])
     phase_eps(torch, range(4), paper[0], sols[0])
@@ -3034,17 +3460,23 @@ def main() -> int:
     stream_counts = phase_streaming(torch)
     lap("phase 11 (streaming)")
 
-    # Phase 12: the kernels line (each kernel's launches on its main paths:
+    # Phase 12: the experiment fabric (Fig. 3, 6 and 5 sweeps, the runner).
+    fabric_counts = phase_fabric(torch, paper, sols, scheme_results)
+    lap("phase 12 (experiment fabric)")
+
+    # Phase 13: the kernels line (each kernel's launches on its main paths:
     # the calendar kernels' and port_stats' grow by the planner's run in
-    # phase 8, by ours_ls's runs in phase 10 and by the streams of phase 11,
-    # lp_terms_batch's by the streams' LPs), then the result.
+    # phase 8, by ours_ls's runs in phase 10, by the streams of phase 11 and
+    # by the sweeps of phase 12, lp_terms_batch's by the streams' and the
+    # sweeps' LPs), then the result.
     for name in ("pair_resolve", "port_stats"):
         counts[name] += (train_counts[name] + sum(c[name] for c in refine_counts.values())
-                         + stream_counts[name])
-    counts["lp_terms_batch"] += stream_counts["lp_terms_batch"]
+                         + stream_counts[name] + fabric_counts[name])
+    counts["lp_terms_batch"] += stream_counts["lp_terms_batch"] + fabric_counts["lp_terms_batch"]
     flow_counts["event_resolve"] += (sum(c["event_resolve"] for c in refine_counts.values())
-                                     + stream_counts["event_resolve"])
-    counts["lp_terms"] = single_counts["lp_terms"]
+                                     + stream_counts["event_resolve"]
+                                     + fabric_counts["event_resolve"])
+    counts["lp_terms"] = single_counts["lp_terms"] + fabric_counts["lp_terms"]
     counts["event_resolve"] = flow_counts["event_resolve"]
     counts["flash_attention"] = serve_counts["flash_attention"]
     counts["mlstm_chunk"] = xlstm_counts["mlstm_chunk"]

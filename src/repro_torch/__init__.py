@@ -16,3 +16,8 @@ Entry points run on ``device="cuda"`` unless the caller passes
     sols = solve_ensemble_lp(ens)
     results = get_pipeline("ours").run_batch(ens, lp_solutions=sols)
 """
+
+#: Joins the sweep cache's code fingerprint
+#: (`repro_torch.experiments.cache.code_fingerprint`); kept in step with
+#: ``pyproject.toml``.
+__version__ = "0.3.0"

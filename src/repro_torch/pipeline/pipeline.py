@@ -22,8 +22,8 @@ stages have array forms and the backend is ``"batch"``, else one instance
 at a time through the pipeline's own host stages (`refine_sequential`),
 which ``require_batch=True`` refuses.  ``stage_cache`` shares the build,
 the orders and each later stage between pipelines run on the same
-(instances, lp_solutions).  The reference's ``mesh`` sharding is not
-ported (ROADMAP item 9).
+(instances, lp_solutions).  The reference's ``mesh`` sharding is left
+for the launch tooling (ROADMAP item 10b).
 """
 
 from __future__ import annotations
@@ -79,6 +79,17 @@ def order_view(
 #: is bound to, and the `EnsembleBatch` built once for it.
 _FINGERPRINT_KEY = "__ensemble_fingerprint__"
 _ENSEMBLE_KEY = "__ensemble_batch__"
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one: a tensor's device carries its card's
+    index, a resolved ``"cuda"`` may not (it means the current card)."""
+    if a.type != b.type:
+        return False
+    if a.index == b.index:
+        return True
+    current = torch.cuda.current_device() if a.type == "cuda" else None
+    return (current if a.index is None else a.index) == (current if b.index is None else b.index)
 
 
 def _ensemble_fingerprint(instances, lp_solutions) -> tuple:
@@ -267,7 +278,7 @@ class Pipeline:
             ensemble = stage_cache.get(_ENSEMBLE_KEY)
         if ensemble is None:
             ensemble = build_ensemble_batch(instances, device=device)
-        elif ensemble.device != device:
+        elif not _same_device(ensemble.device, device):
             raise ValueError(
                 f"the given EnsembleBatch lives on {ensemble.device}, the run "
                 f"on {device}"

@@ -54,7 +54,8 @@ def test_new_modules_are_checked():
     scheduler, stages), and refinement, the calendar's executors and the
     collective planner (localsearch, refine, batch_circuit, pipeline,
     spec, ensemble_batch, planner), and the streaming service and its
-    arrival generators (pool, service, arrivals, results) are among the
+    arrival generators (pool, service, arrivals, results), and the
+    experiment fabric (ensemble, cache, sweep, runner, mesh) are among the
     files the syntax check reads."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in (
@@ -72,6 +73,8 @@ def test_new_modules_are_checked():
         "collectives/__init__.py", "collectives/planner.py",
         "streaming/__init__.py", "streaming/pool.py", "streaming/service.py",
         "traffic/arrivals.py", "experiments/results.py",
+        "experiments/ensemble.py", "experiments/cache.py", "experiments/sweep.py",
+        "experiments/runner.py", "launch/mesh.py",
     ):
         assert f"src/repro_torch/{mod}" in names
 
@@ -88,7 +91,9 @@ def test_import_loads_no_jax():
         "repro_torch.core.bvn, repro_torch.core.eps, repro_torch.core.localsearch, "
         "repro_torch.pipeline.refine, repro_torch.collectives.planner, "
         "repro_torch.streaming, repro_torch.traffic.arrivals, "
-        "repro_torch.experiments.results; "
+        "repro_torch.experiments.results, repro_torch.experiments.cache, "
+        "repro_torch.experiments.sweep, repro_torch.experiments.runner, "
+        "repro_torch.launch.mesh; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -111,7 +116,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.launch.serve import main, serve
     from repro_torch.models import build_model
     from repro_torch.collectives.planner import GradientBucket, plan
-    from repro_torch.experiments import stream
+    from repro_torch.experiments import run_distributed, run_shard, stream, sweep
     from repro_torch.pipeline import build_ensemble_batch, get_pipeline
     from repro_torch.pipeline.ensemble_batch import build_slot_pool_batch
 
@@ -156,6 +161,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: stream(inst, lp_method="exact"),
         lambda: stream(inst, lp_method="exact", epoch_mode="rebuild", pool_size=2),
         lambda: build_slot_pool_batch(4, 2, inst.rates, inst.delta),
+        lambda: sweep([inst]),
+        lambda: sweep([inst], lp_method="exact", schemes=("ours",)),
+        lambda: sweep([inst], lp_method="subgradient", alloc="loop"),
+        lambda: run_shard([{}], lambda spec: inst, schemes=("ours",)),
+        lambda: run_distributed([{}], lambda spec: inst, name="x", schemes=("ours",)),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
