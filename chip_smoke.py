@@ -215,9 +215,45 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    runner on the reference runner test's 7 cells: shards 0 and 1 of 2
    sharing a cache merge to one sweep's rows byte for byte, a re-run
    computes none, `run_distributed` in one process equals one sweep;
-13. the ``kernels`` JSON line (the calendar kernels' and `port_stats`'
+13. training ``xlstm-1.3b`` at full width (48 layers, 1.14e9 parameters,
+   f32 masters; random weights from a seed) through
+   ``repro_torch.launch.train.train`` with ``compress_grads``, batch 4 x
+   512, 4 steps, a checkpoint every 2 steps into a temporary directory
+   (first checked to have twice the checkpoint's bytes free, reckoned from
+   `param_count`) and a failure injected at step 3: exactly one restart,
+   resumed at step 3 from the save of step 2, each leaf's f64 checksum of
+   the restored state equal to the saved state's; every one of the 320
+   gradient leaves finite and nonzero, the error feedback within
+   ``EF_BOUND``; `mlstm_chunk` launched once per mLSTM layer of each
+   forward (4 x 42 = 168: its backward recomputes through the twin),
+   `quantize` steps x leaves, `dequantize` twice that; ms per step, the
+   snapshot, write and restore seconds, the checkpoint's bytes and peak
+   memory.  Then `mlstm_chunk` at the training shape (16, 512, 512), C =
+   256, bf16, against its twin, and `_MlstmChunk`'s gradients on the card
+   (the kernel's forward) bit for bit against autograd through the twin on
+   the card; a reduced f32 xLSTM trained 3 compressed steps on the card
+   and on the host, the host starting each step from the card's state
+   (gradients within 1e-4 at step 0 and 1e-3 later of each leaf's largest
+   value, losses within 1e-4); a reduced xLSTM trained on the card with a
+   save every 2 steps and a failure at step 4 of 6, bit-identical to the
+   same steps replayed by hand;
+14. serving ``recurrentgemma-2b`` at full width (26 layers: 18 RG-LRU and 8
+   local attention with 10 query heads on one kv head of 256, window
+   2048; d_model 2560, vocab 256000; random weights from a seed) through
+   `serve` as phase 6 serves gemma3: every request gets its tokens, every
+   logit is finite, `flash_attention` launched exactly waves x (1 +
+   max_new) x 8 = 272 times and no other kernel; decode after a prefill of
+   P - 1 tokens within 4 bf16 units of the teacher-forced forward's
+   largest logit, the carried conv windows in bf16; `flash_attention`
+   against its twin at the serve's group-10 prefill and decode shapes in
+   f32 and bf16; a reduced recurrentgemma in f32 served on the card and on
+   the host (identical tokens, logits within 2e-4) and trained 3 steps
+   (as phase 13's reduced xLSTM);
+15. the ``kernels`` JSON line (the calendar kernels' and `port_stats`'
    launches summed over phases 3, 8, 10, 11 and 12, `lp_terms_batch`'s over
-   phases 3, 11 and 12), then ``{"ok": true, "device": ...}`` last.
+   phases 3, 11 and 12, `mlstm_chunk`'s over phases 7 and 13, `quantize`'s
+   and `dequantize`'s over 8 and 13, `flash_attention`'s over 6 and 14),
+   then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero as well without a CUDA device.
@@ -226,6 +262,7 @@ result.  It exits non-zero as well without a CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import statistics
@@ -733,6 +770,38 @@ def attention_mask(torch, Sq, Skv, causal, window, q_offset, dev):
     return mask
 
 
+def hold_flash_case(torch, label, case, dtype, gen):
+    """`flash_attention` at ``case`` (B, Hq, Hkv, Sq, Skv, D, causal,
+    window, q_offset) in ``dtype`` on N(0, 1) inputs against its twin: f32
+    within 2e-5, bf16 within one bf16 rounding (2**-7 of the value plus
+    1e-5).  Logs the route; returns the largest difference and (q, k, v)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    dev = torch.device("cuda")
+    B, Hq, Hkv, Sq, Skv, D, causal, window, off = case
+    q, k, v = (
+        torch.randn(shape, generator=gen).to(dev, dtype)
+        for shape in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))
+    )
+    got = fa.flash_attention(q, k, v, causal, window, off)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v, causal, window, off).float()
+    e = (got.float() - want).abs()
+    if dtype == torch.float32:
+        check(bool((e <= 2e-5).all()), f"flash_attention {label} {case} f32 "
+              f"off by {float(e.max())}")
+    else:
+        check(bool((e <= 2**-7 * want.abs() + 1e-5).all()),
+              f"flash_attention {label} {case} bf16 beyond one rounding")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fa.plan(dtype, B, Hq, Hkv, Sq, Skv, causal, window, off, sms)
+    log(f"flash_attention {label} {case} {str(dtype)[6:]}: route {plan.route}"
+        + (f" ({plan.n_split} runs of {plan.length} keys from {plan.begin})"
+           if plan.route == "split" else "")
+        + f", max abs err {float(e.max()):.3g}")
+    return float(e.max()), (q, k, v)
+
+
 def phase_flash_kernel(torch):
     """`flash_attention` against its twin: f32 within 2e-5 (the reference
     sweep's tolerance); bf16 within one bf16 rounding (2**-7 of the value
@@ -744,7 +813,6 @@ def phase_flash_kernel(torch):
     from repro_torch.kernels import flash_attention as fa
 
     dev = torch.device("cuda")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     gen = torch.Generator().manual_seed(15)
     timed = {
         "prefill local": (4, 4, 1, 600, 617, 256, True, 512, 0),
@@ -756,31 +824,13 @@ def phase_flash_kernel(torch):
     err = 0.0
     inputs = {}
     for label, case in [*timed.items(), *(("sweep", c) for c in ATTN_SWEEP)]:
-        B, Hq, Hkv, Sq, Skv, D, causal, window, off = case
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = (
-                torch.randn(shape, generator=gen).to(dev, dtype)
-                for shape in ((B, Hq, Sq, D), (B, Hkv, Skv, D), (B, Hkv, Skv, D))
-            )
-            got = fa.flash_attention(q, k, v, causal, window, off)
-            torch.cuda.synchronize()
-            want = fa.flash_attention_plain(q, k, v, causal, window, off).float()
-            e = (got.float() - want).abs()
-            if dtype == torch.float32:
-                check(bool((e <= 2e-5).all()), f"flash_attention {label} {case} f32 "
-                      f"off by {float(e.max())}")
-            else:
-                check(bool((e <= 2**-7 * want.abs() + 1e-5).all()),
-                      f"flash_attention {label} {case} bf16 beyond one rounding")
-                err = max(err, float(e.max()))
-            plan = fa.plan(dtype, B, Hq, Hkv, Sq, Skv, causal, window, off, sms)
-            log(f"flash_attention {label} {case} {str(dtype)[6:]}: route {plan.route}"
-                + (f" ({plan.n_split} runs of {plan.length} keys from {plan.begin})"
-                   if plan.route == "split" else "")
-                + f", max abs err {float(e.max()):.3g}")
-            if label in timed and dtype == torch.bfloat16:
-                inputs[label] = (q, k, v, case)
-            del q, k, v, got, want, e
+            e, qkv = hold_flash_case(torch, label, case, dtype, gen)
+            if dtype == torch.bfloat16:
+                err = max(err, e)
+                if label in timed:
+                    inputs[label] = (*qkv, case)
+            del qkv
     # The model hands the kernel (B, S, H, D) tensors viewed as (B, H, S, D).
     for label in ("prefill local", "decode local"):
         q, k, v, case = inputs[label]
@@ -1623,6 +1673,30 @@ def bf16_units(torch, x):
     return 2.0 ** (int(torch.floor(torch.log2(x.abs().max().float()))) - 7)
 
 
+def card_vs_host_serving(torch, small, label, prompt_len):
+    """``small`` (an f32 config) served on the card and on the host from the
+    same parameters, 8 requests x 8 tokens, 4 slots: identical greedy
+    tokens, logits within 2e-4."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import build_model
+
+    p_cpu = build_model(small, "cpu").init(torch.Generator().manual_seed(0))
+    p_gpu = build_model(small).cast(p_cpu)
+    kw = dict(slots=4, requests=8, prompt_len=prompt_len, max_new=8, seed=0)
+    on_card = serve(small, p_gpu, **kw)
+    on_host = serve(small, p_cpu, device="cpu", **kw)
+    check(on_card.produced == on_host.produced,
+          f"card and host serve different greedy tokens ({label}, f32)")
+    worst = max(
+        float((a.cpu() - b).abs().max())
+        for wa, wb in zip(on_card.logits, on_host.logits) for a, b in zip(wa, wb)
+    )
+    check(worst <= 2e-4, f"card vs host ({label}) logits differ by {worst} > 2e-4")
+    log(f"card vs host ({label}, f32, {kw['requests']} requests x {kw['max_new']} tokens, "
+        f"prompts of {prompt_len}): identical greedy tokens, logits max abs diff {worst:.3g} "
+        f"(bound 2e-4)")
+
+
 def phase_serving(torch):
     """`serve` on gemma3-1b at full width, with launch counts, then the
     teacher-forcing check, card against host on a reduced model, and one
@@ -1704,23 +1778,8 @@ def phase_serving(torch):
 
     # Card against host: a reduced gemma3 in f32, the same parameters.
     small = get_arch("gemma3-1b").reduced(vocab_size=512, compute_dtype="float32")
-    host = build_model(small, "cpu")
-    p_cpu = host.init(torch.Generator().manual_seed(0))
-    p_gpu = build_model(small).cast(p_cpu)
-    kw = dict(slots=4, requests=8, prompt_len=40, max_new=8, seed=0)
-    on_card = serve(small, p_gpu, **kw)
-    on_host = serve(small, p_cpu, device="cpu", **kw)
-    check(on_card.produced == on_host.produced,
-          "card and host serve different greedy tokens (reduced gemma3, f32)")
-    worst = max(
-        float((a.cpu() - b).abs().max())
-        for wa, wb in zip(on_card.logits, on_host.logits) for a, b in zip(wa, wb)
-    )
-    check(worst <= 2e-4, f"card vs host logits differ by {worst} > 2e-4")
-    log(f"card vs host (reduced gemma3, f32, {kw['requests']} requests x "
-        f"{kw['max_new']} tokens, prompts of {kw['prompt_len']} past the window of "
-        f"{small.window_size}): identical greedy tokens, logits max abs diff {worst:.3g} "
-        f"(bound 2e-4)")
+    card_vs_host_serving(torch, small, f"reduced gemma3, past the window of "
+                         f"{small.window_size}", prompt_len=40)
 
     # One decode tick profiled, on a cache filled by a prefill of P tokens.
     with torch.inference_mode():
@@ -1917,23 +1976,8 @@ def phase_serving_xlstm(torch):
     # Card against host: a reduced xLSTM in f32, the same parameters.
     small = get_arch("xlstm-1.3b").reduced(vocab_size=512, compute_dtype="float32",
                                            mlstm_chunk=8)
-    host = build_model(small, "cpu")
-    p_cpu = host.init(torch.Generator().manual_seed(0))
-    p_gpu = build_model(small).cast(p_cpu)
-    kw = dict(slots=4, requests=8, prompt_len=36, max_new=8, seed=0)
-    on_card = serve(small, p_gpu, **kw)
-    on_host = serve(small, p_cpu, device="cpu", **kw)
-    check(on_card.produced == on_host.produced,
-          "card and host serve different greedy tokens (reduced xLSTM, f32)")
-    worst = max(
-        float((a.cpu() - b).abs().max())
-        for wa, wb in zip(on_card.logits, on_host.logits) for a, b in zip(wa, wb)
-    )
-    check(worst <= 2e-4, f"xlstm card vs host logits differ by {worst} > 2e-4")
-    log(f"card vs host (reduced xLSTM, f32, mlstm_chunk {small.mlstm_chunk}, "
-        f"{kw['requests']} requests x {kw['max_new']} tokens, prompts of "
-        f"{kw['prompt_len']}): identical greedy tokens, logits max abs diff "
-        f"{worst:.3g} (bound 2e-4)")
+    card_vs_host_serving(torch, small, f"reduced xLSTM, mlstm_chunk {small.mlstm_chunk}",
+                         prompt_len=36)
 
     # One decode tick profiled, on the state of the prefill of P tokens.
     with torch.inference_mode():
@@ -2020,6 +2064,100 @@ def check_plan(torch, params, cplan):
         f"the same plan from plan(device='cpu') ({host_s:.4f} s on the host)")
 
 
+def grad_inspector(torch, label):
+    """The trainer's ``inspect`` hook for a full-width compressed run: the
+    step's peak memory so far (the checks' own temporaries are left out),
+    then every gradient leaf finite and nonzero and the new error feedback
+    within ``EF_BOUND`` quantization steps of its row's scale.  Returns the
+    record it fills and the hook."""
+    from repro_torch import tree
+
+    seen = {"leaves": set(), "worst_ef": 0.0, "steps": 0, "peaks": []}
+
+    def inspect(step, grads, errors, new_errors):
+        seen["peaks"].append(torch.cuda.max_memory_allocated())
+        leaves = tree.leaves(grads)
+        seen["leaves"].add(len(leaves))
+        seen["steps"] += 1
+        for i, (g, e, e_new) in enumerate(zip(leaves, tree.leaves(errors),
+                                               tree.leaves(new_errors))):
+            check(bool(torch.isfinite(g).all()), f"{label} step {step}: leaf {i} gradient not finite")
+            check(bool(g.any()), f"{label} step {step}: leaf {i} ({tuple(g.shape)}) gradient is zero")
+            scale, rows = row_scales(torch, g.float() + e)
+            ratio = torch.nn.functional.pad(e_new.reshape(-1).abs(),
+                                            (0, rows * 512 - e_new.numel())).view(rows, 512)
+            ratio = float((ratio / scale[:, None]).max())
+            seen["worst_ef"] = max(seen["worst_ef"], ratio)
+            check(ratio <= EF_BOUND, f"{label} step {step}: leaf {i} error feedback "
+                  f"{ratio} quantization steps > {EF_BOUND}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    return seen, inspect
+
+
+def card_vs_host_training(torch, small, label, seq=40, resync=False):
+    """Card against host: ``small`` (an f32 config, TF32 off), 3 steps of
+    the trainer's compressed step from the same weights and batches, with
+    the same noise drawn on the host from (7, step); losses within 1e-4.
+    Step 0's gradients come from identical weights: 1e-4 of each leaf's
+    largest host value (the CPU tests' bound against the reference); later
+    steps 1e-3 of it (PERF.md, section 6, holds the readings).  Without
+    ``resync`` each device runs its own trajectory, so later steps start
+    from weights that differ by the f32 roundings of the earlier updates.
+    With ``resync`` the host starts every step from a copy of the card's
+    state (masters, moments, count, error feedback): the recurrent models'
+    trajectories part by more than any bound, since AdamW's first updates
+    are about lr x sign(g) and flip where g is near zero, and xLSTM's
+    gradients then move with each rounding."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import SyntheticTokens, make_batch_iterator
+    from repro_torch.launch import train as T
+    from repro_torch.launch.steps import make_compressed_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+
+    opt = AdamW(schedule=cosine_schedule(3e-3, 1, 3))
+    p_cpu = build_model(small, "cpu").init(torch.Generator().manual_seed(0), masters=True)
+    step_fns, states, datas, runs = {}, {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        m = build_model(small, dev)
+        p = m.cast(p_cpu, masters=True) if dev == "cuda" else p_cpu
+        step_fns[dev], states[dev] = make_compressed_step(m, opt), (p, opt.init(p), None)
+        datas[dev] = make_batch_iterator(SyntheticTokens(small.vocab_size, seq, 2))
+        runs[dev] = {"loss": [], "grads": []}
+    host = functools.partial(tree.map_leaves, lambda t: t.cpu())
+    try:
+        for step in range(3):
+            if resync and step:
+                p, o, e = states["cuda"]
+                states["cpu"] = (host(p), {"m": host(o["m"]), "v": host(o["v"]),
+                                           "count": o["count"]}, host(e))
+            for dev in ("cuda", "cpu"):
+                run = runs[dev]
+                gen = torch.Generator().manual_seed(T.noise_seed(step))
+                p, o, e, stats = step_fns[dev](
+                    *states[dev], next(datas[dev]), gen,
+                    lambda g, *_, run=run: run["grads"].append([t.cpu() for t in tree.leaves(g)]))
+                states[dev] = (p, o, e)
+                run["loss"].append(float(stats["loss"]))
+    finally:
+        for data in datas.values():
+            data.close()
+    how = "each step from the card's state" if resync else "two trajectories"
+    for step, (gc, gh) in enumerate(zip(runs["cuda"]["grads"], runs["cpu"]["grads"])):
+        rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(gc, gh))
+        bound = 1e-4 if step == 0 else 1e-3
+        check(rel <= bound, f"card vs host ({label}) step {step}: gradients differ by {rel} of "
+              f"a leaf's largest value > {bound}")
+        log(f"card vs host ({label}, f32, {how}) step {step}: gradients within {rel:.3g} of "
+            f"each leaf's largest value (bound {bound}); losses {runs['cuda']['loss'][step]:.7f} "
+            f"and {runs['cpu']['loss'][step]:.7f}")
+    dl = max(abs(a - b) for a, b in zip(runs["cuda"]["loss"], runs["cpu"]["loss"]))
+    check(dl <= 1e-4, f"card vs host ({label}) losses differ by {dl} > 1e-4")
+
+
 def phase_training(torch):
     """``repro_torch.launch.train.main`` on gemma3-1b at full width with
     ``--compress-grads --plan-collectives``: the collective plan
@@ -2031,34 +2169,14 @@ def phase_training(torch):
     from repro_torch import tree
     from repro_torch.pipeline import batch_circuit
     from repro_torch.configs import get_arch
-    from repro_torch.data.pipeline import SyntheticTokens, make_batch_iterator
+    from repro_torch.data.pipeline import SyntheticTokens
     from repro_torch.launch import train as T
     from repro_torch.launch.steps import make_compressed_step
     from repro_torch.models.model import build_model
     from repro_torch.optim.adamw import AdamW, cosine_schedule
 
     cfg = get_arch("gemma3-1b")
-    seen = {"leaves": set(), "worst_ef": 0.0, "steps": 0, "peaks": []}
-
-    def inspect(step, grads, errors, new_errors):
-        # The step's peak so far; the checks' own temporaries are left out.
-        seen["peaks"].append(torch.cuda.max_memory_allocated())
-        leaves = tree.leaves(grads)
-        seen["leaves"].add(len(leaves))
-        seen["steps"] += 1
-        for i, (g, e, e_new) in enumerate(zip(leaves, tree.leaves(errors),
-                                               tree.leaves(new_errors))):
-            check(bool(torch.isfinite(g).all()), f"train step {step}: leaf {i} gradient not finite")
-            check(bool(g.any()), f"train step {step}: leaf {i} ({tuple(g.shape)}) gradient is zero")
-            scale, rows = row_scales(torch, g.float() + e)
-            ratio = torch.nn.functional.pad(e_new.reshape(-1).abs(),
-                                            (0, rows * 512 - e_new.numel())).view(rows, 512)
-            ratio = float((ratio / scale[:, None]).max())
-            seen["worst_ef"] = max(seen["worst_ef"], ratio)
-            check(ratio <= EF_BOUND, f"train step {step}: leaf {i} error feedback "
-                  f"{ratio} quantization steps > {EF_BOUND}")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+    seen, inspect = grad_inspector(torch, "train")
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2137,45 +2255,9 @@ def phase_training(torch):
     del params, opt_state, errors, model
     torch.cuda.empty_cache()
 
-    # Card against host: a reduced gemma3 in f32 (TF32 off), 3 steps of
-    # the trainer's compressed step from the same weights and batches, with
-    # the same noise drawn on the host from (7, step).  Step 0's gradients
-    # come from identical weights: 1e-4 of each leaf's largest host value
-    # (the CPU tests' bound against the reference).  Later steps start from
-    # weights that differ by the f32 roundings of the earlier updates: 1e-3
-    # of the leaf's largest value (PERF.md, section 6, holds the readings).
-    # Losses within 1e-4.
-    small = dataclasses.replace(T.config_for("gemma3-1b"), compute_dtype="float32")
-    p_cpu = build_model(small, "cpu").init(torch.Generator().manual_seed(0), masters=True)
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        m = build_model(small, dev)
-        p = m.cast(p_cpu, masters=True) if dev == "cuda" else p_cpu
-        opt = AdamW(schedule=cosine_schedule(3e-3, 1, 3))
-        step_fn, opt_state, errors = make_compressed_step(m, opt), opt.init(p), None
-        data = make_batch_iterator(SyntheticTokens(small.vocab_size, 40, 2))
-        run = runs[dev] = {"loss": [], "grads": []}
-        try:
-            for step in range(3):
-                gen = torch.Generator().manual_seed(T.noise_seed(step))
-                p, opt_state, errors, stats = step_fn(
-                    p, opt_state, errors, next(data), gen,
-                    lambda g, e, e_new, run=run: run["grads"].append(
-                        [t.cpu() for t in tree.leaves(g)]))
-                run["loss"].append(float(stats["loss"]))
-        finally:
-            data.close()
-    for step, (gc, gh) in enumerate(zip(runs["cuda"]["grads"], runs["cpu"]["grads"])):
-        rel = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-                  for a, b in zip(gc, gh))
-        bound = 1e-4 if step == 0 else 1e-3
-        check(rel <= bound, f"card vs host step {step}: gradients differ by {rel} of a leaf's "
-              f"largest value > {bound}")
-        log(f"card vs host (reduced gemma3, f32) step {step}: gradients within {rel:.3g} of "
-            f"each leaf's largest value (bound {bound}); losses {runs['cuda']['loss'][step]:.7f} "
-            f"and {runs['cpu']['loss'][step]:.7f}")
-    dl = max(abs(a - b) for a, b in zip(runs["cuda"]["loss"], runs["cpu"]["loss"]))
-    check(dl <= 1e-4, f"card vs host losses differ by {dl} > 1e-4")
+    card_vs_host_training(
+        torch, dataclasses.replace(T.config_for("gemma3-1b"), compute_dtype="float32"),
+        "reduced gemma3")
     return counts
 
 
@@ -3316,6 +3398,347 @@ def phase_fabric(torch, paper, sols, scheme_results):
     return {k: sum(c[k] for c in launches) for k in launches[0]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: training xlstm-1.3b at full width, and recovering from a failure
+# ---------------------------------------------------------------------------
+
+# The trainer's full-width xLSTM run: the reference trainer's flags, a save
+# at step 2 and a failure at step 3, so the run restores step 2 and resumes.
+# Sequences of 512, cut from 1024: with them the whole smoke passed 900 s
+# on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md, section 4).
+XLSTM_TRAIN = dict(steps=4, batch=4, seq=512, checkpoint_every=2, inject_failure=3)
+
+
+def state_checksums(torch, state):
+    """Per leaf of a checkpointed state, the f64 sum of a tensor's values
+    (a Python number as itself), in the checkpoint's key order."""
+    from repro_torch.checkpoint.checkpointer import flatten
+
+    return {k: float(v.double().sum()) if isinstance(v, torch.Tensor) else v
+            for k, v in flatten(state).items()}
+
+
+def recovery_matches_replay(torch, cfg, root, label):
+    """``train`` on the card with a save every 2 steps and a failure at
+    step 4 of 6 (restore step 2, steps 3-5 on batches 4-6) against the same
+    steps replayed by hand on the card from an in-memory copy of the state
+    after step 2: losses, parameters, moments and error feedback bit for
+    bit."""
+    from repro_torch import tree
+    from repro_torch.data.pipeline import SyntheticTokens, make_batch_iterator
+    from repro_torch.launch import train as T
+    from repro_torch.launch.steps import make_compressed_step
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamW, cosine_schedule
+
+    res = T.train(cfg, steps=6, batch=2, seq=32, compress_grads=True, checkpoint_dir=root,
+                  checkpoint_every=2, inject_failure=4, log_every=100)
+    check(res.restarts == 1 and res.steps == [0, 1, 2, 3, 3, 4, 5],
+          f"{label} recovery: restarts {res.restarts}, steps {res.steps}")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), masters=True)
+    opt = AdamW(schedule=cosine_schedule(3e-3, 1, 6))
+    step_fn, opt_state, errors, losses, saved = make_compressed_step(model, opt), \
+        opt.init(params), None, [], None
+    data = make_batch_iterator(SyntheticTokens(cfg.vocab_size, 32, 2))
+    try:
+        for i, step in enumerate(res.steps):
+            if i == 4:  # the failure: back to the state after step 2
+                params, opt_state = saved
+            gen = torch.Generator(device="cuda").manual_seed(T.noise_seed(step))
+            params, opt_state, errors, stats = step_fn(params, opt_state, errors, next(data), gen)
+            losses.append(float(stats["loss"]))
+            if i == 2:
+                saved = (tree.map_leaves(torch.clone, params),
+                         {"m": tree.map_leaves(torch.clone, opt_state["m"]),
+                          "v": tree.map_leaves(torch.clone, opt_state["v"]),
+                          "count": opt_state["count"]})
+    finally:
+        data.close()
+    got = [res.params, res.opt_state["m"], res.opt_state["v"], res.error_feedback]
+    want = [params, opt_state["m"], opt_state["v"], errors]
+    same = losses == res.losses and res.opt_state["count"] == opt_state["count"] and all(
+        torch.equal(a, b) for g, w in zip(got, want)
+        for a, b in zip(tree.leaves(g), tree.leaves(w)))
+    check(same, f"{label} recovery differs from its replay by hand")
+    log(f"{label} recovery on the card (save every 2, failure at 4 of 6 steps, restore 2): "
+        f"steps {res.steps}, bit-identical to the replay by hand (losses, "
+        f"{len(tree.leaves(res.params))} leaves of parameters, moments, error feedback); "
+        f"save {sum(res.save_s):.4f} s, write {sum(res.write_s):.4f} s, restore "
+        f"{sum(res.restore_s):.4f} s")
+
+
+def hold_mlstm_training_shape(torch, BH, S, Dh, C):
+    """`mlstm_chunk` at the training shape (bf16, zero state) against its
+    twin (phase 2's bf16 bounds), then `_MlstmChunk`'s gradients on the
+    card (kernel forward, one launch) against autograd through the twin on
+    the card, bit for bit."""
+    from repro_torch.kernels import mlstm_chunk as mc
+
+    gen = torch.Generator().manual_seed(29)
+    args, _ = mlstm_inputs(torch, BH, S, Dh, torch.bfloat16, False, gen)
+    route = mc.plan(torch.bfloat16, BH, S, Dh, C)
+    h, (s_fin, n_fin) = mc.mlstm_chunk(*args, chunk=C)
+    torch.cuda.synchronize()
+    h_p, (s_p, n_p) = mc.mlstm_chunk_plain(*args, chunk=C)
+    for name, a, b in (("S", s_fin, s_p), ("n", n_fin, n_p)):
+        check(bool(((a - b).abs() <= 2e-4 + 2e-4 * b.abs()).all()),
+              f"mlstm_chunk training shape: {name} off by {float((a - b).abs().max())}")
+    eh = (h.float() - h_p.float()).abs()
+    check(bool((eh <= 2**-7 * h_p.float().abs() + 2e-4).all()),
+          "mlstm_chunk training shape: h beyond one bf16 rounding")
+    log(f"mlstm_chunk training shape ({BH}, {S}, {Dh}, C={C}) bf16 zero state, route {route}: "
+        f"max abs err h {float(eh.max()):.3g}, S {float((s_fin - s_p).abs().max()):.3g}, "
+        f"n {float((n_fin - n_p).abs().max()):.3g}")
+    del h, s_fin, n_fin, h_p, s_p, n_p
+    douts = (torch.randn((BH, S, Dh), generator=gen).to("cuda", torch.bfloat16),
+             torch.randn((BH, Dh, Dh), generator=gen).cuda(),
+             torch.randn((BH, Dh), generator=gen).cuda())
+    grads = []
+    for fn in (mc.mlstm_chunk, mc.mlstm_chunk_plain):
+        leaves = [t.clone().requires_grad_() for t in args]
+        before = mc.LAUNCHES
+        h, (s_fin, n_fin) = fn(*leaves, chunk=C)
+        launched = mc.LAUNCHES - before
+        grads.append(torch.autograd.grad((h, s_fin, n_fin), leaves, douts))
+        del h, s_fin, n_fin
+        check(launched == (1 if fn is mc.mlstm_chunk else 0),
+              f"_MlstmChunk: {launched} kernel launches in the forward")
+    check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in zip(*grads)),
+          "_MlstmChunk: card gradients differ from autograd through the twin")
+    log(f"_MlstmChunk at the training shape: the kernel's forward (1 launch), gradients of "
+        f"q, k, v, log_f, log_i bit-identical to autograd through the twin on the card")
+
+
+def phase_training_xlstm(torch):
+    """`train` on xlstm-1.3b at full width with compressed gradients, a
+    checkpoint and an injected failure (see the module docstring, 13)."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree
+    from repro_torch.checkpoint import checkpointer as C
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as T
+    from repro_torch.models.model import build_model, param_count
+
+    cfg = get_arch("xlstm-1.3b")
+    n_mlstm = cfg.layer_kinds.count("mlstm")
+    kw = XLSTM_TRAIN
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    sums = {"save": [], "restore": []}
+
+    class Checksummed(C.Checkpointer):
+        """The trainer's checkpointer, with each saved and restored state's
+        checksums recorded (outside the steps' timing)."""
+
+        def save(self, step, state, block=False):
+            sums["save"].append((step, state_checksums(torch, state)))
+            super().save(step, state, block)
+
+        def restore(self, step, like, device=None):
+            out = super().restore(step, like, device)
+            sums["restore"].append((step, state_checksums(torch, out)))
+            return out
+
+    try:
+        params = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0),
+                                       masters=True)
+        n_params = param_count(params)
+        ckpt_bytes = 3 * 4 * n_params  # f32 masters, m and v
+        free = shutil.disk_usage(root).free
+        check(free >= 2 * ckpt_bytes,
+              f"xlstm train: {free / 1e9:.1f} GB free under {root}, short of twice the "
+              f"checkpoint's {ckpt_bytes / 1e9:.1f} GB (f32 masters and AdamW moments of "
+              f"{n_params} parameters); free disk space there (TMPDIR) and rerun")
+        log(f"xlstm train: checkpoint {ckpt_bytes / 1e9:.3f} GB by param_count, "
+            f"{free / 1e9:.1f} GB free under the temporary directory")
+        seen, inspect = grad_inspector(torch, "xlstm train")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        T.Checkpointer = Checksummed
+        t0 = time.perf_counter()
+        try:
+            res = T.train(cfg, compress_grads=True, params=params, inspect=inspect,
+                          checkpoint_dir=root, log_every=1, **kw)
+        finally:
+            T.Checkpointer = C.Checkpointer
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = max(seen["peaks"] + [torch.cuda.max_memory_allocated()])
+        del params
+        on_disk = sum(f.stat().st_size for f in Path(root).rglob("*") if f.is_file())
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    f = kw["inject_failure"]
+    s = (f - 1) // kw["checkpoint_every"] * kw["checkpoint_every"]  # the last save before f
+    check(res.restarts == 1 and res.steps == [*range(f), *range(s + 1, kw["steps"])],
+          f"xlstm train: restarts {res.restarts}, steps {res.steps}")
+    check([st for st, _ in sums["save"]] == [s] and [st for st, _ in sums["restore"]] == [s],
+          f"xlstm train: saves {[st for st, _ in sums['save']]}, restores "
+          f"{[st for st, _ in sums['restore']]}")
+    check(sums["save"][0][1] == sums["restore"][0][1],
+          "xlstm train: the restored state's checksums differ from the saved state's")
+    leaves = len(tree.leaves(res.params))
+    ran = len(res.steps)
+    check(seen["leaves"] == {leaves} and seen["steps"] == ran,
+          f"xlstm train: inspected {seen} for {leaves} leaves and {ran} steps")
+    check(all(np.isfinite(res.losses)), f"xlstm train: losses {res.losses}")
+    want = dict(mlstm_chunk=ran * n_mlstm, quantize=ran * leaves, dequantize=2 * ran * leaves)
+    for name, n in want.items():
+        check(counts[name] == n, f"xlstm train: {name} launched {counts[name]} times, "
+              f"expected {n}")
+    others = {k: v for k, v in counts.items() if k not in want}
+    check(not any(others.values()), f"xlstm train: other kernels launched {others}")
+    tokens = kw["batch"] * kw["seq"]
+    log(f"training {cfg.name} (full width, {leaves} leaves, {n_params} parameters, f32 "
+        f"masters), batch {kw['batch']} x {kw['seq']} tokens, steps {res.steps} in "
+        f"{wall:.3f} s (init, data, checkpoint and restore included); restarts "
+        f"{res.restarts}, stragglers {res.stragglers}")
+    for step, loss, dt, ex, gn in zip(res.steps, res.losses, res.step_s, res.exchange_s,
+                                      res.grad_norms):
+        log(f"xlstm train step {step}: loss {loss:.6f} gnorm {gn:.4f} {1e3 * dt:.3f} ms "
+            f"({tokens / dt:.1f} tokens/s), compressed exchange {1e3 * ex:.3f} ms "
+            f"({100 * ex / dt:.1f} % of the step)")
+    log(f"xlstm checkpoint: step {s} saved ({ckpt_bytes} bytes of f32 leaves by param_count, "
+        f"{on_disk} bytes on disk), snapshot {res.save_s[0]:.4f} s, write {res.write_s[0]:.4f} s "
+        f"(writer thread), restore {res.restore_s[0]:.4f} s; {len(sums['save'][0][1])} leaves' "
+        f"f64 checksums equal after the restore")
+    log(f"training {cfg.name}: launches {json.dumps(counts)} (mlstm_chunk = {ran} forward "
+        f"passes x {n_mlstm} mLSTM layers, quantize = {ran} x {leaves} leaves, dequantize "
+        f"twice that); peak device memory {peak / 1e9:.3f} GB (torch.cuda."
+        f"max_memory_allocated, the checks' temporaries left out); every leaf's gradient "
+        f"finite and nonzero; error feedback at most {seen['worst_ef']:.7f} quantization "
+        f"steps (bound {EF_BOUND})")
+    del res
+    torch.cuda.empty_cache()
+
+    hold_mlstm_training_shape(torch, kw["batch"] * cfg.num_heads, kw["seq"], cfg.head_dim,
+                              cfg.mlstm_chunk)
+    small = dataclasses.replace(T.config_for("xlstm-1.3b"), compute_dtype="float32",
+                                mlstm_chunk=16)
+    card_vs_host_training(torch, small, "reduced xLSTM, mlstm_chunk 16", resync=True)
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        recovery_matches_replay(torch, T.config_for("xlstm-1.3b"), root, "reduced xLSTM")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: serving and training recurrentgemma-2b
+# ---------------------------------------------------------------------------
+
+
+def phase_rglru(torch):
+    """`serve` on recurrentgemma-2b at full width through the flash kernel
+    (see the module docstring, 14), then the reduced model in f32 on the
+    card against the host, served and trained."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as T
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import build_model, param_bytes, param_count
+
+    cfg = get_arch("recurrentgemma-2b")
+    n_local = cfg.layer_kinds.count("local")
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SERVE["seed"]))
+    torch.cuda.synchronize()
+    log(f"serving {cfg.name}: {param_count(params)} parameters, "
+        f"{param_bytes(params) / 1e9:.3f} GB held (bf16 matrices; f32 norms, Lambda, w_r, "
+        f"w_i), init {time.perf_counter() - t0:.2f} s; layers "
+        f"{cfg.layer_kinds.count('rglru')} RG-LRU + {n_local} local attention "
+        f"(Hq {cfg.num_heads}, Hkv {cfg.num_kv_heads}, D {cfg.head_dim}, window "
+        f"{cfg.window_size})")
+    serve(cfg, params, **{**SERVE, "requests": 1, "max_new": 1})  # warm-up, not counted
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = serve(cfg, params, **SERVE)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_req, new = SERVE["requests"], SERVE["max_new"]
+    waves = -(-n_req // SERVE["slots"])
+    check((res.waves, res.ticks, res.tokens) == (waves, waves * new, n_req * new),
+          f"rglru serve: waves/ticks/tokens {res.waves}/{res.ticks}/{res.tokens}")
+    for rid, toks in res.produced.items():
+        check(len(toks) == new and all(0 <= t < cfg.vocab_size for t in toks),
+              f"rglru serve: request {rid} got {toks}")
+    for w, wave in enumerate(res.logits):
+        for lg in wave:
+            check(lg.shape[-1] == cfg.vocab_size and bool(torch.isfinite(lg).all()),
+                  f"rglru serve: wave {w} logits not finite or of the wrong shape")
+    expect = res.waves * (1 + new) * n_local
+    check(counts["flash_attention"] == expect,
+          f"rglru serve: flash_attention launched {counts['flash_attention']} times, "
+          f"expected {expect} = waves x (1 + max_new) x local layers")
+    others = {k: v for k, v in counts.items() if k != "flash_attention"}
+    check(not any(others.values()), f"rglru serve: other kernels launched {others}")
+    ticks_ms = sorted(1e3 * t for t in res.tick_s)
+    log(f"serving {cfg.name}: {n_req} requests x {new} tokens, prompts of "
+        f"{SERVE['prompt_len']}, {SERVE['slots']} slots: {res.waves} waves, "
+        f"{res.ticks} ticks, {res.tokens} tokens in {res.seconds:.4f} s "
+        f"({res.tokens / res.seconds:.2f} tokens/s)")
+    log(f"serving {cfg.name}: prefill s per wave {[round(t, 4) for t in res.prefill_s]}; "
+        f"decode ms per tick median {statistics.median(ticks_ms):.3f} "
+        f"(min {ticks_ms[0]:.3f}, max {ticks_ms[-1]:.3f}); peak device memory "
+        f"{peak / 1e9:.3f} GB (torch.cuda.max_memory_allocated)")
+    log(f"serving {cfg.name}: launches {json.dumps(counts)} (flash_attention expected "
+        f"{expect} = {res.waves} waves x (1 + {new}) x {n_local} local layers)")
+
+    # Decode after a prefill of P - 1 tokens against the teacher-forced
+    # forward: the carried h and the bf16 conv window, and the kernel's
+    # q_offset; 4 bf16 units at the largest logit, as for gemma3.
+    P = SERVE["prompt_len"]
+    rng = np.random.default_rng(SERVE["seed"] + 1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE["slots"], P))).cuda()
+    with torch.inference_mode():
+        full, _ = model.forward(params, {"tokens": tokens})
+        want = full[:, -1].float()
+        del full
+        cache = model.init_cache(SERVE["slots"], P)
+        _, cache = model.forward(params, {"tokens": tokens[:, : P - 1]}, cache=cache, pos=0)
+        got, _ = model.decode_step(params, cache, {"tokens": tokens[:, P - 1 :]}, P - 1)
+    conv_dtypes = {str(c[1].dtype) for c, kind in zip(cache, cfg.layer_kinds) if kind == "rglru"}
+    check(conv_dtypes == {"torch.bfloat16"}, f"rglru: carried conv windows {conv_dtypes}")
+    diff = (got.float() - want).abs()
+    tol = 4 * bf16_units(torch, want)
+    check(bool((diff <= tol).all()),
+          f"rglru teacher forcing: decode differs from forward by {float(diff.max())} > {tol}")
+    log(f"rglru teacher forcing ({SERVE['slots']} x {P} tokens): decode vs forward max abs "
+        f"{float(diff.max()):.4g}, mean {float(diff.mean()):.4g}, bound {tol:.4g} (4 bf16 "
+        f"units at |logit| max {float(want.abs().max()):.4g}); argmax equal in "
+        f"{int((got.argmax(-1) == want.argmax(-1)).sum())} of {SERVE['slots']} rows")
+    del params, cache, model
+    torch.cuda.empty_cache()
+
+    # The kernel at the serve's group-10 shapes (10 query heads on one kv
+    # head, D 256, window 2048): prefill and a decode step.
+    gen = torch.Generator().manual_seed(30)
+    L = P + new + 1
+    for label, case in (
+        ("rglru prefill", (SERVE["slots"], cfg.num_heads, 1, P, L, cfg.head_dim, True,
+                           cfg.window_size, 0)),
+        ("rglru decode", (SERVE["slots"], cfg.num_heads, 1, 1, L, cfg.head_dim, True,
+                          cfg.window_size, P)),
+    ):
+        for dtype in (torch.float32, torch.bfloat16):
+            hold_flash_case(torch, label, case, dtype, gen)
+
+    small = get_arch("recurrentgemma-2b").reduced(vocab_size=512, compute_dtype="float32")
+    card_vs_host_serving(torch, small, "reduced recurrentgemma, past the window of "
+                         f"{small.window_size}", prompt_len=40)
+    card_vs_host_training(
+        torch, dataclasses.replace(T.config_for("recurrentgemma-2b"), compute_dtype="float32"),
+        "reduced recurrentgemma", resync=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3464,11 +3887,22 @@ def main() -> int:
     fabric_counts = phase_fabric(torch, paper, sols, scheme_results)
     lap("phase 12 (experiment fabric)")
 
-    # Phase 13: the kernels line (each kernel's launches on its main paths:
+    # Phase 13: training xlstm-1.3b at full width, with a checkpointed
+    # failure recovered.
+    xtrain_counts = phase_training_xlstm(torch)
+    lap("phase 13 (training xlstm-1.3b, recovery)")
+
+    # Phase 14: serving recurrentgemma-2b at full width; its reduced model
+    # served and trained, card against host.
+    rglru_counts = phase_rglru(torch)
+    lap("phase 14 (recurrentgemma-2b)")
+
+    # Phase 15: the kernels line (each kernel's launches on its main paths:
     # the calendar kernels' and port_stats' grow by the planner's run in
     # phase 8, by ours_ls's runs in phase 10, by the streams of phase 11 and
     # by the sweeps of phase 12, lp_terms_batch's by the streams' and the
-    # sweeps' LPs), then the result.
+    # sweeps' LPs, mlstm_chunk's, quantize's and dequantize's by phase 13's
+    # training and flash_attention's by phase 14's serve), then the result.
     for name in ("pair_resolve", "port_stats"):
         counts[name] += (train_counts[name] + sum(c[name] for c in refine_counts.values())
                          + stream_counts[name] + fabric_counts[name])
@@ -3478,10 +3912,10 @@ def main() -> int:
                                      + fabric_counts["event_resolve"])
     counts["lp_terms"] = single_counts["lp_terms"] + fabric_counts["lp_terms"]
     counts["event_resolve"] = flow_counts["event_resolve"]
-    counts["flash_attention"] = serve_counts["flash_attention"]
-    counts["mlstm_chunk"] = xlstm_counts["mlstm_chunk"]
-    counts["quantize"] = train_counts["quantize"]
-    counts["dequantize"] = train_counts["dequantize"]
+    counts["flash_attention"] = serve_counts["flash_attention"] + rglru_counts["flash_attention"]
+    counts["mlstm_chunk"] = xlstm_counts["mlstm_chunk"] + xtrain_counts["mlstm_chunk"]
+    counts["quantize"] = train_counts["quantize"] + xtrain_counts["quantize"]
+    counts["dequantize"] = train_counts["dequantize"] + xtrain_counts["dequantize"]
     for r in rows:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -77,9 +77,10 @@ def params_from_reference(
     a unit of ``u`` kinds repeated ``reps`` times sits at ``units[i % u]``,
     row ``i // u`` of every stacked leaf, for ``i < reps * u``, and at
     ``rem[i - reps * u]`` after that.  Each layer's blocks keep their names
-    (``attn`` and ``ffn``; ``mix`` for mLSTM and sLSTM).  Matrices and the
-    embedding are held in the compute dtype, norms and sLSTM's ``r`` in
-    f32, on ``device``.
+    (``attn`` and ``ffn``; ``mix`` for mLSTM, sLSTM and RG-LRU, whose
+    layers keep their ``ffn``).  Matrices and the embedding are held in the
+    compute dtype, vectors, sLSTM's ``r`` and RG-LRU's ``w_r`` and ``w_i``
+    in f32, on ``device`` (all in f32 with ``masters``).
     """
     model = build_model(cfg, device)
     u = len(tuple(cfg.layer_unit))

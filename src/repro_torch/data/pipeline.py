@@ -64,15 +64,24 @@ class SyntheticTokens:
 
 
 def make_batch_iterator(source: SyntheticTokens, prefetch: int = 2):
-    """Background-thread double buffering (host-side input pipeline)."""
+    """Background-thread double buffering (host-side input pipeline).
+
+    The consumer gets ``source``'s batches in order, however slowly it
+    reads.  The reference's worker drops the batch it holds whenever the
+    queue stays full for 0.5 s (a step slower than that), so its stream
+    depends on the steps' timing; the port keeps offering the batch."""
     q: queue.Queue = queue.Queue(maxsize=prefetch)
     stop = threading.Event()
 
     def worker():
+        batch = None
         while not stop.is_set():
+            if batch is None:
+                batch = source.next_batch()
             try:
-                q.put(source.next_batch(), timeout=0.5)
-            except queue.Full:
+                q.put(batch, timeout=0.5)
+                batch = None
+            except queue.Full:  # a slow consumer: offer the same batch again
                 continue
 
     t = threading.Thread(target=worker, daemon=True)

@@ -158,8 +158,8 @@ def refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:
     A kernel writes its result through raw pointers, so that result has no
     autograd graph: a wrapper with no backward calls this before its launch
     rather than hand back a result detached from operands that require
-    grad.  (`flash_attention` has a backward and routes such calls through
-    it.)
+    grad.  (`flash_attention` and `mlstm_chunk` have a backward and route
+    such calls through it.)
     """
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(

@@ -45,6 +45,11 @@ The source note gives each route's bound and design.  A CUDA tensor of a
 shape no route takes raises.  `LAUNCHES` counts one per call that reaches
 a kernel, whatever number of CUDA kernels its route launches (the mma
 route launches two).
+
+Where autograd records (training xLSTM), the call goes through a
+`torch.autograd.Function` whose backward recomputes through the twin, as
+`flash_attention`'s does; elsewhere (serving) the wrapper launches the
+kernel directly.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import launch, refuse_grad, stream_of
+from repro_torch.kernels.common import launch, stream_of
 
 __all__ = [
     "mlstm_chunk", "mlstm_chunk_plain", "block_smem", "plan", "scratch_bytes", "LAUNCHES",
@@ -117,7 +122,10 @@ def mlstm_chunk_plain(q, k, v, log_f, log_i, state=None, chunk: int = 256):
         inter = q_dec @ S_prev
         inter_n = (q_dec @ n_prev[..., None])[..., 0]
         gate = F[:, :, None] - F[:, None, :] + li[:, None, :]
-        A = torch.where(causal, torch.exp(gate), 0.0)  # select: masked exps may be inf
+        # Masked before the exponential: a masked gate may overflow, and
+        # under autograd exp's backward would multiply its zero cotangent
+        # by inf.  The values are the reference's where(causal, exp, 0).
+        A = torch.exp(torch.where(causal, gate, -torch.inf))
         scores = (qc @ kc.transpose(1, 2)) * A
         num = inter + scores @ vc
         den = inter_n + scores.sum(dim=2)
@@ -170,16 +178,54 @@ def _check(q, k, v, log_f, log_i, state, chunk) -> int:
     return C
 
 
+class _MlstmChunk(torch.autograd.Function):
+    """Forward through `_forward` (the kernel on the card, the twin on the
+    host); backward by recomputing through `mlstm_chunk_plain` under
+    autograd, with gradients to q, k, v, the log gates and the initial
+    state: the twin is the chunk loop of the reference's
+    `_mlstm_chunk_scan`, which the reference trains through.  No backward
+    kernel: the reference has none."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_f, log_i, s0, n0, C):
+        ctx.save_for_backward(q, k, v, log_f, log_i, s0, n0)
+        ctx.C = C
+        h, (s, n) = _forward(q, k, v, log_f, log_i, None if s0 is None else (s0, n0), C)
+        return h, s, n
+
+    @staticmethod
+    def backward(ctx, dh, ds, dn):
+        with torch.enable_grad():
+            saved = [None if t is None else t.detach().requires_grad_() for t in ctx.saved_tensors]
+            q, k, v, log_f, log_i, s0, n0 = saved
+            h, (s, n) = mlstm_chunk_plain(
+                q, k, v, log_f, log_i, None if s0 is None else (s0, n0), ctx.C)
+            inputs = [t for t in saved if t is not None]
+            grads = iter(torch.autograd.grad((h, s, n), inputs, (dh, ds, dn)))
+        return (*(None if t is None else next(grads) for t in saved), None)
+
+
 def mlstm_chunk(q, k, v, log_f, log_i, state=None, chunk: int = 256):
     """q/k/v: (BH, S, Dh); log_f/log_i: (BH, S) f32; state: (S0, n0) f32 or
-    None.  Returns (h in q's dtype, (S, n) f32)."""
-    global LAUNCHES
+    None.  Returns (h in q's dtype, (S, n) f32).  Differentiable where
+    autograd records: the forward as below, the backward through the plain
+    twin (`_MlstmChunk`)."""
     C = _check(q, k, v, log_f, log_i, state, chunk)
+    operands = (q, k, v, log_f, log_i, *(state or ()))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        s0, n0 = (None, None) if state is None else state
+        h, s, n = _MlstmChunk.apply(q, k, v, log_f, log_i, s0, n0, C)
+        return h, (s, n)
+    return _forward(q, k, v, log_f, log_i, state, C)
+
+
+def _forward(q, k, v, log_f, log_i, state, C):
+    """The twin for CPU tensors, the kernel for CUDA tensors (no graph)."""
+    global LAUNCHES
     if q.device.type == "cpu":
         return mlstm_chunk_plain(q, k, v, log_f, log_i, state, C)
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_chunk: unsupported device {q.device}")
-    refuse_grad("mlstm_chunk", q, k, v, log_f, log_i, *(state or ()))
     BH, S, Dh = q.shape
     route = plan(q.dtype, BH, S, Dh, C)
     if route == "mma" and S // C > 65535:

@@ -5,8 +5,8 @@ Serves a model from a request queue: up to ``slots`` requests are packed
 into a batch per wave, prefilled together at position 0, then decoded in
 lockstep, one `Model.decode_step` per tick, for ``max_new`` ticks; the next
 wave refills the batch.  Each wave starts from a fresh cache: K/V for
-attention layers, zero recurrent state for mLSTM and sLSTM layers, which
-the prefill leaves for the first tick and each tick for the next.  Greedy
+attention layers, zero recurrent state for mLSTM, sLSTM and RG-LRU layers,
+which the prefill leaves for the first tick and each tick for the next.  Greedy
 sampling (argmax of the compute-dtype logits).  Prompts come from
 ``np.random.default_rng(seed)`` in the reference's order, so both packages
 serve the same requests.  The CLI serves the reduced config of ``--arch``
@@ -16,6 +16,7 @@ config, full widths included.
 Usage:
   python -m repro_torch.launch.serve --arch gemma3-1b --requests 16 --max-new 32
   python -m repro_torch.launch.serve --arch xlstm-1.3b
+  python -m repro_torch.launch.serve --arch recurrentgemma-2b
   python -m repro_torch.launch.serve --device cpu     # the host, plain twins
 """
 

@@ -23,13 +23,15 @@ counterpart: the port runs on one card.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention import flash_attention
 
 __all__ = [
-    "dense_init", "embed_init", "rms_norm", "rope",
+    "dense_init", "embed_init", "rms_norm", "rope", "f32_products",
     "attn_init", "attn_apply", "attn_init_cache", "ffn_init", "ffn_apply",
 ]
 
@@ -49,6 +51,18 @@ def dense_init(gen: torch.Generator, in_dim: int, out_dim: int) -> torch.Tensor:
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int) -> torch.Tensor:
     return torch.randn((vocab, dim), generator=gen, device=gen.device)
+
+
+@contextlib.contextmanager
+def f32_products():
+    """TF32 off for the card's products inside: the reference computes
+    them in f32 (sLSTM's recurrence, RG-LRU's gates)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

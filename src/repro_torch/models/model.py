@@ -1,28 +1,30 @@
-"""Model assembly (port of `repro.models.model` for dense decoders and
-xLSTM).
+"""Model assembly (port of `repro.models.model` for dense decoders, xLSTM
+and RG-LRU hybrids).
 
 A model is a stack of residual blocks described by ``cfg.layer_kinds``
 (gemma3 = 5 x "local" + 1 x "attn" repeating; xlstm = 7 x "mlstm" + 1 x
-"slstm").  The reference groups layers into repeating units and runs
-``lax.scan`` over stacked parameters to keep its compiled program small;
+"slstm"; recurrentgemma = "rglru", "rglru", "local").  The reference
+groups layers into repeating units and runs ``lax.scan`` over stacked
+parameters to keep its compiled program small;
 the port runs eagerly, so layers are a Python loop over a per-layer
 parameter list (``params["layers"]``), and the cache is a per-layer list of
 each layer's own state: ``{"k", "v"}`` for attention (written in place),
-``(S, n)`` for mLSTM and ``(c, n, h)`` for sLSTM (replaced by the new state
-at every call).
+``(S, n)`` for mLSTM, ``(c, n, h)`` for sLSTM and ``(h, conv window)`` for
+RG-LRU (replaced by the new state at every call).
 
 The port runs the kinds "attn" (global) and "local" (sliding window), each
-followed by the dense gated FFN, and "mlstm" and "slstm", which carry their
-own projections and have no FFN (``d_ff = 0`` is accepted for them only).
-Other kinds (MLA, RG-LRU, cross attention) and mixtures of experts are not
-ported yet (ROADMAP.md, Queue 1): `build_model` raises for them.
+followed by the dense gated FFN; "rglru", followed by the FFN as well; and
+"mlstm" and "slstm", which carry their own projections and have no FFN
+(``d_ff = 0`` is accepted for them only).  Other kinds (MLA, cross
+attention) and mixtures of experts are not ported yet (ROADMAP.md, Queue
+1): `build_model` raises for them.
 
-Training (`Model.loss`) runs the dense kinds: a trainer holds f32 masters
-(``init(..., masters=True)``), cast to the compute dtype at every use as
-the reference casts them, and autograd differentiates through the casts
-and through the flash kernel's backward.  xLSTM is served, not trained:
-`mlstm_chunk` has no backward (the reference trains xLSTM through its jnp
-scan), so `loss` and f32 masters raise for "mlstm" and "slstm".
+Training (`Model.loss`) runs every ported kind: a trainer holds f32
+masters (``init(..., masters=True)``), cast to the compute dtype at every
+use as the reference casts them, and autograd differentiates through the
+casts, through the flash and mLSTM kernels' backwards (each recomputes
+through its plain twin, as the reference's jnp routes do), and through the
+sLSTM loop and the RG-LRU scan.
 """
 
 from __future__ import annotations
@@ -36,17 +38,21 @@ from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
 from repro_torch.models import xlstm as X
 
 __all__ = ["Model", "build_model", "param_count", "param_bytes"]
 
-# Layer kinds the port runs; the recurrent ones have no FFN.
-_PORTED_KINDS = ("attn", "local", "mlstm", "slstm")
-_RECURRENT_KINDS = ("mlstm", "slstm")
+# Layer kinds the port runs; xLSTM's have no FFN.
+_PORTED_KINDS = ("attn", "local", "rglru", "mlstm", "slstm")
+_NO_FFN_KINDS = ("mlstm", "slstm")
+# Matrices read in f32, so held in f32 for serving too.
+_F32_MATRICES = ("r",) + R.F32_WEIGHTS
 
 
 class Model:
-    """A decoder (dense or xLSTM) on one device.  Built by `build_model`."""
+    """A decoder (dense, xLSTM or RG-LRU hybrid) on one device.  Built by
+    `build_model`."""
 
     def __init__(self, cfg: ModelConfig, device: torch.device):
         self.cfg = cfg
@@ -60,8 +66,9 @@ class Model:
     def init(self, generator: torch.Generator, masters: bool = False) -> dict[str, Any]:
         """Random parameters from ``generator``, which must be on the
         model's device: the reference's distributions (matrices N(0,
-        1/fan_in), sLSTM's ``r`` N(0, 1/head_dim), embedding N(0, 0.02^2),
-        norms zero), drawn in f32 and held as `cast` holds them."""
+        1/fan_in), sLSTM's ``r`` N(0, 1/head_dim), RG-LRU's as
+        `rglru.rglru_init` draws them, embedding N(0, 0.02^2), norms zero),
+        drawn in f32 and held as `cast` holds them."""
         if generator.device.type != self.device.type:
             raise ValueError(
                 f"init: generator on {generator.device}, model on {self.device}"
@@ -73,6 +80,8 @@ class Model:
                 layers.append({"mix": X.mlstm_init(generator, cfg)})
             elif kind == "slstm":
                 layers.append({"mix": X.slstm_init(generator, cfg)})
+            elif kind == "rglru":
+                layers.append({"mix": R.rglru_init(generator, cfg), "ffn": L.ffn_init(generator, cfg)})
             else:
                 layers.append({"attn": L.attn_init(generator, cfg), "ffn": L.ffn_init(generator, cfg)})
         params = {
@@ -84,15 +93,14 @@ class Model:
 
     def cast(self, params: dict[str, Any], masters: bool = False) -> dict[str, Any]:
         """All on the model's device.  For serving (``masters=False``):
-        matrices and the embedding in the compute dtype, norm weights and
-        sLSTM's recurrent kernel ``r`` in f32, as the reference reads them.
+        matrices and the embedding in the compute dtype; vectors (norm
+        weights, RG-LRU's Lambda), sLSTM's recurrent kernel ``r`` and
+        RG-LRU's ``w_r`` and ``w_i`` in f32, as the reference reads them.
         For training (``masters=True``): every leaf in f32, the reference's
         ``param_dtype``, cast at each use."""
-        if masters:
-            self._check_trainable()
 
         def one(t: torch.Tensor, name: str = "") -> torch.Tensor:
-            keep = masters or t.dim() == 1 or name == "r"
+            keep = masters or t.dim() == 1 or name in _F32_MATRICES
             return t.to(device=self.device, dtype=torch.float32 if keep else self.dtype)
 
         return {
@@ -134,6 +142,8 @@ class Model:
                 delta, state = X.mlstm_apply(p["mix"], x, cfg, state=state, chunk=cfg.mlstm_chunk)
             elif kind == "slstm":
                 delta, state = X.slstm_apply(p["mix"], x, cfg, state=state)
+            elif kind == "rglru":
+                delta, state = R.rglru_apply(p["mix"], x, cfg, state=state)
             else:
                 window = cfg.window_size if kind == "local" else None
                 delta, state = L.attn_apply(
@@ -147,14 +157,6 @@ class Model:
         return x
 
     # ---------------------------------------------------------------- loss
-    def _check_trainable(self) -> None:
-        recurrent = sorted(set(self.cfg.layer_kinds) & set(_RECURRENT_KINDS))
-        if recurrent:
-            raise NotImplementedError(
-                f"{self.cfg.name}: training {', '.join(recurrent)} layers is not "
-                f"ported (mlstm_chunk has no backward; ROADMAP.md, Queue 1)"
-            )
-
     def _xent(self, final_norm, embed, x_c, y_c) -> torch.Tensor:
         """Summed token cross entropy of one chunk: logits in the compute
         dtype, their logsumexp in f32, the label's logit read in the
@@ -174,7 +176,6 @@ class Model:
         never held whole; the whole sequence in one chunk when ``S`` is not
         a multiple of the chunk; the sum divided by the label count.
         """
-        self._check_trainable()
         x = self._hidden(params, batch)
         labels = torch.as_tensor(batch["labels"], device=self.device).long()
         B, S = labels.shape
@@ -192,12 +193,14 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int) -> list:
         """Per layer: zero K/V of ``max_len`` positions for attention, the
-        zero recurrent state for mLSTM and sLSTM (f32, any length)."""
+        zero recurrent state for mLSTM, sLSTM and RG-LRU (f32, any length)."""
         def one(kind: str):
             if kind == "mlstm":
                 return X.mlstm_init_state(self.cfg, batch, self.device)
             if kind == "slstm":
                 return X.slstm_init_state(self.cfg, batch, self.device)
+            if kind == "rglru":
+                return R.rglru_init_state(self.cfg, batch, self.device)
             return L.attn_init_cache(self.cfg, batch, max_len, self.dtype, self.device)
 
         return [one(kind) for kind in self.cfg.layer_kinds]
@@ -229,9 +232,9 @@ def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
             f"{cfg.name}: {what} not ported yet (ROADMAP.md, Queue 1: the "
             f"remaining model families)"
         )
-    if cfg.d_ff <= 0 and set(cfg.layer_kinds) - set(_RECURRENT_KINDS):
+    if cfg.d_ff <= 0 and set(cfg.layer_kinds) - set(_NO_FFN_KINDS):
         raise NotImplementedError(
-            f"{cfg.name}: attention blocks without an FFN are not ported"
+            f"{cfg.name}: attention or RG-LRU blocks without an FFN are not ported"
         )
     return Model(cfg, device)
 

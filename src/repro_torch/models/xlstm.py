@@ -11,13 +11,18 @@ The reference model runs its chunkwise form in jnp (`_mlstm_chunk_scan`);
 the port runs the same arithmetic through the hand-written kernel
 (`repro_torch.kernels.mlstm_chunk`), which takes the layer's carried state
 ``(S (B, H, Dh, Dh), n (B, H, Dh))`` in f32 and returns the new one: prefill
-and every decode step go through it.
+and every decode step go through it, and so does training, whose backward
+recomputes through the kernel's plain twin (the reference's scan).
+
+Matrices are cast to the compute dtype at each use, as the reference casts
+its f32 masters: a server holds them in the compute dtype (the cast is a
+no-op), a trainer in f32, and its gradients flow through the casts.
 
 sLSTM keeps the reference's sequential recurrence (a block-diagonal
 per-head recurrent kernel ``r``, f32 state and pre-activations) as a Python
-loop over positions, the counterpart of its ``lax.scan``.  No Pallas kernel
-computes it, so none is ported; ``r`` is held in f32, as the reference
-reads it.
+loop over positions, the counterpart of its ``lax.scan``, which autograd
+differentiates as it runs.  No Pallas kernel computes it, so none is
+ported; ``r`` is held in f32, as the reference reads it.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mlstm_chunk import mlstm_chunk
-from repro_torch.models.layers import dense_init, rms_norm
+from repro_torch.models.layers import dense_init, f32_products, rms_norm
 
 __all__ = [
     "mlstm_init", "mlstm_apply", "mlstm_init_state",
@@ -74,10 +79,11 @@ def mlstm_apply(p, x, cfg, *, state=None, chunk: int = 256):
     B, S, _ = x.shape
     H, Dh = cfg.num_heads, cfg.head_dim
     h = rms_norm(x, p["norm"])
-    q = (h @ p["wq"]).view(B, S, H, Dh)
-    k = (h @ p["wk"]).view(B, S, H, Dh) * _scalar(Dh**-0.5, h.dtype)
-    v = (h @ p["wv"]).view(B, S, H, Dh)
-    gates = (h @ p["w_if"]).view(B, S, 2, H).to(torch.float32)
+    cdt = h.dtype
+    q = (h @ p["wq"].to(cdt)).view(B, S, H, Dh)
+    k = (h @ p["wk"].to(cdt)).view(B, S, H, Dh) * _scalar(Dh**-0.5, cdt)
+    v = (h @ p["wv"].to(cdt)).view(B, S, H, Dh)
+    gates = (h @ p["w_if"].to(cdt)).view(B, S, 2, H).to(torch.float32)
     log_i = torch.clamp(gates[:, :, 0], -10.0, 10.0)
     log_f = F.logsigmoid(gates[:, :, 1])
 
@@ -99,9 +105,9 @@ def mlstm_apply(p, x, cfg, *, state=None, chunk: int = 256):
         state=(S_prev.reshape(B * H, Dh, Dh), n_prev.reshape(B * H, Dh)), chunk=C,
     )
     out = out.view(B, H, Sp, Dh).transpose(1, 2)[:, :S]
-    skip = _silu(h @ p["skip_gate"]).view(B, S, H, Dh)
+    skip = _silu(h @ p["skip_gate"].to(cdt)).view(B, S, H, Dh)
     out = (out * skip).reshape(B, S, H * Dh)
-    return (out @ p["wo"]).to(x.dtype), (S_new.view(B, H, Dh, Dh), n_new.view(B, H, Dh))
+    return (out @ p["wo"].to(cdt)).to(x.dtype), (S_new.view(B, H, Dh, Dh), n_new.view(B, H, Dh))
 
 
 def mlstm_init_state(cfg, batch: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -130,16 +136,13 @@ def slstm_apply(p, x, cfg, *, state=None):
     B, S, _ = x.shape
     H, Dh = cfg.num_heads, cfg.head_dim
     hin = rms_norm(x, p["norm"])
-    pre = (hin @ p["w_in"]).view(B, S, H, 4 * Dh).to(torch.float32)
+    pre = (hin @ p["w_in"].to(hin.dtype)).view(B, S, H, 4 * Dh).to(torch.float32)
     if state is None:
         state = slstm_init_state(cfg, B, x.device)
     r = p["r"].to(torch.float32)  # (H, Dh, 4 Dh)
     c, n, h = state
     hs = []
-    # The reference's recurrent product is f32: TF32 off around the loop.
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with f32_products():
         for t in range(S):
             rec = torch.bmm(h.transpose(0, 1), r).transpose(0, 1)  # (B, H, 4 Dh)
             z, i, f, o = (pre[:, t] + rec).split(Dh, dim=-1)
@@ -151,10 +154,8 @@ def slstm_apply(p, x, cfg, *, state=None):
             n = f * n + i
             h = o * c / torch.clamp(n.abs(), min=1.0)
             hs.append(h)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
     out = torch.stack(hs, dim=1).reshape(B, S, H * Dh).to(x.dtype)
-    return (out @ p["wo"]).to(x.dtype), (c, n, h)
+    return (out @ p["wo"].to(x.dtype)).to(x.dtype), (c, n, h)
 
 
 def slstm_init_state(cfg, batch: int, device) -> tuple[torch.Tensor, ...]:

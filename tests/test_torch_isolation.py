@@ -55,8 +55,10 @@ def test_new_modules_are_checked():
     collective planner (localsearch, refine, batch_circuit, pipeline,
     spec, ensemble_batch, planner), and the streaming service and its
     arrival generators (pool, service, arrivals, results), and the
-    experiment fabric (ensemble, cache, sweep, runner, mesh) are among the
-    files the syntax check reads."""
+    experiment fabric (ensemble, cache, sweep, runner, mesh), and
+    checkpointing, failure recovery and the RG-LRU family (checkpointer,
+    fault_tolerance, rglru, its config) are among the files the syntax
+    check reads."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in (
         "core/lp.py", "core/ordering.py", "core/lower_bounds.py", "core/theory.py",
@@ -75,6 +77,8 @@ def test_new_modules_are_checked():
         "traffic/arrivals.py", "experiments/results.py",
         "experiments/ensemble.py", "experiments/cache.py", "experiments/sweep.py",
         "experiments/runner.py", "launch/mesh.py",
+        "checkpoint/__init__.py", "checkpoint/checkpointer.py", "runtime/fault_tolerance.py",
+        "models/rglru.py", "configs/recurrentgemma_2b.py",
     ):
         assert f"src/repro_torch/{mod}" in names
 
@@ -93,7 +97,8 @@ def test_import_loads_no_jax():
         "repro_torch.streaming, repro_torch.traffic.arrivals, "
         "repro_torch.experiments.results, repro_torch.experiments.cache, "
         "repro_torch.experiments.sweep, repro_torch.experiments.runner, "
-        "repro_torch.launch.mesh; "
+        "repro_torch.launch.mesh, repro_torch.checkpoint, "
+        "repro_torch.runtime.fault_tolerance, repro_torch.models.rglru; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -166,6 +171,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: sweep([inst], lp_method="subgradient", alloc="loop"),
         lambda: run_shard([{}], lambda spec: inst, schemes=("ours",)),
         lambda: run_distributed([{}], lambda spec: inst, name="x", schemes=("ours",)),
+        lambda: train.main(["--arch", "xlstm-1.3b", "--steps", "1", "--inject-failure", "1",
+                            "--checkpoint-dir", "unused"]),
+        lambda: train.train(xlstm, steps=1, batch=1, seq=4, checkpoint_dir="unused"),
+        lambda: build_model(get_arch("recurrentgemma-2b")),
+        lambda: main(["--arch", "recurrentgemma-2b", "--requests", "1", "--prompt-len", "2",
+                      "--max-new", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -3,7 +3,8 @@ against the JAX package's, on the host, given the same weights, batches
 and gradients.
 
 Tolerances (f32 unless stated):
-  * synthetic batches: byte-identical (the same NumPy stream);
+  * synthetic batches: byte-identical (the same NumPy stream), also for a
+    consumer slower than the prefetch thread's wait;
   * `cosine_schedule`: 1e-6 relative (both compute in f32; ``cos`` may
     differ by an ulp between libraries); `constant_schedule` exact;
   * `AdamW.update`: 1e-6 relative plus 1e-9 absolute on the new
@@ -13,22 +14,31 @@ Tolerances (f32 unless stated):
   * `Model.loss`: 2e-4 absolute (measured about 5e-7 in f32, 1e-5 in
     bf16) on a reduced gemma3 (window 16) over 40 positions: two loss
     chunks of 20, and one chunk of 40 when the chunk (16) does not divide
-    it; under both of the reference's ``attention_impl``;
+    it; under both of the reference's ``attention_impl``; likewise on
+    reduced stablelm-1.6b (group 2, D = 16), phi3-medium-14b and
+    xlstm-1.3b (``mlstm_chunk`` 12: several chunks and a padded one);
   * gradients, leaf by leaf through `convert.params_from_reference`:
     1e-4 of the leaf's largest reference value in f32 (measured 2.5e-6);
     in bf16 0.1 of it (measured 0.043: every gradient that flows through
     a cast is rounded to bf16 once, at other places in the two
-    frameworks);
+    frameworks).  xLSTM in bf16 is held against the reference run op by
+    op (``jax.disable_jit()``), as its forward is (`test_torch_models`):
+    under jit XLA keeps some bf16 intermediates in f32;
   * `make_train_step` with 2 microbatches: loss 2e-4, parameters after
     the step 1e-7 absolute.  The step's AdamW takes eps = 1, so that its
     update is about lr x g, linear in the accumulated gradients (with the
     default eps = 1e-8 it is about lr x sign(g), and a gradient as small
     as the frameworks' difference may take either sign);
-  * `flash_attention`'s gradients on the host: identical to autograd
-    through `flash_attention_plain` (the backward is that recompute).
+  * `flash_attention`'s and `mlstm_chunk`'s gradients: identical to
+    autograd through their plain twins (the backward is that recompute),
+    on the host and, for `mlstm_chunk`, on the card (marked ``cuda``);
+  * a run recovered from an injected failure: bit-identical to the same
+    steps replayed by hand (the checkpoint round trip is exact).
 """
 
+import contextlib
 import dataclasses
+import time
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +48,7 @@ import torch
 
 from repro.configs import ARCHS as REF_ARCHS
 from repro.data.pipeline import SyntheticTokens as RefTokens
+from repro.kernels.mlstm_chunk import mlstm_ref
 from repro.launch.steps import make_train_step as ref_make_train_step
 from repro.models.model import build_model as ref_build_model
 from repro.optim import adamw as ref_adamw
@@ -47,6 +58,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.convert import params_from_reference
 from repro_torch.data.pipeline import SyntheticTokens, make_batch_iterator
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import mlstm_chunk as mc
 from repro_torch.kernels import quant as qt
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.steps import loss_and_grad, make_compressed_step, make_train_step
@@ -78,6 +90,19 @@ def test_synthetic_tokens_byte_identical(seed):
     it = make_batch_iterator(SyntheticTokens(512, 24, 3, seed=seed))
     first = RefTokens(512, 24, 3, seed=seed).next_batch()
     assert next(it)["tokens"].tobytes() == first["tokens"].tobytes()
+    it.close()
+
+
+def test_batch_iterator_keeps_every_batch_for_a_slow_consumer():
+    """A consumer slower than the worker's 0.5 s wait on a full queue still
+    gets the source's batches in order (the reference's worker would drop
+    the batch it holds each time the wait runs out)."""
+    it = make_batch_iterator(SyntheticTokens(64, 8, 2, seed=5), prefetch=1)
+    want = SyntheticTokens(64, 8, 2, seed=5)
+    time.sleep(1.2)  # the worker's wait runs out twice on a full queue
+    for _ in range(3):
+        got, exp = next(it), want.next_batch()
+        assert all(got[k].tobytes() == exp[k].tobytes() for k in exp)
     it.close()
 
 
@@ -136,9 +161,11 @@ def test_adamw_update_matches_reference(master_weights, grad_scale):
 
 
 # ----------------------------------------------------------- loss and grads
-def _pair(dtype="float32", impl="chunked", seed=0, **kw):
+def _pair(dtype="float32", impl="chunked", seed=0, arch="gemma3-1b", **kw):
+    if arch == "xlstm-1.3b":
+        kw.setdefault("mlstm_chunk", 12)
     cfg = dataclasses.replace(
-        REF_ARCHS["gemma3-1b"].reduced(compute_dtype=dtype, **kw), attention_impl=impl
+        REF_ARCHS[arch].reduced(compute_dtype=dtype, **kw), attention_impl=impl
     )
     ref = ref_build_model(cfg)
     ref_params = ref.init(jax.random.PRNGKey(seed))
@@ -218,16 +245,29 @@ def test_train_step_with_microbatches_matches_reference():
     assert abs(float(loss_all) - float(stats["loss"])) <= 1e-5
 
 
-def test_training_refuses_recurrent_kinds():
-    """xLSTM is served, not trained: `mlstm_chunk` has no backward."""
-    cfg = get_arch("xlstm-1.3b").reduced()
-    model = build_model(cfg, "cpu")
-    params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="mlstm_chunk has no backward"):
-        model.loss(params, {"tokens": np.zeros((1, 4), np.int32),
-                            "labels": np.zeros((1, 4), np.int32)})
-    with pytest.raises(NotImplementedError, match="mlstm_chunk has no backward"):
-        model.init(torch.Generator().manual_seed(0), masters=True)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "phi3-medium-14b", "xlstm-1.3b"])
+def test_loss_and_grads_match_reference_other_archs(arch, dtype):
+    """The other trainable decoders: stablelm (the trainer's default arch)
+    and phi3 reach attention groups and head dims gemma3 does not; xLSTM
+    trains through `mlstm_chunk`'s backward and the sLSTM loop.  Every
+    gradient leaf against ``jax.value_and_grad(ref.loss)``."""
+    cfg, port_cfg, ref, ref_params, port, params = _pair(dtype, arch=arch)
+    batch = _batch(cfg)
+    op_by_op = arch == "xlstm-1.3b" and dtype == "bfloat16"
+    with jax.disable_jit() if op_by_op else contextlib.nullcontext():
+        want, ref_grads = jax.value_and_grad(ref.loss)(ref_params, _jnp(batch), 20)
+    got, grads = loss_and_grad(port, params, batch)
+    assert abs(float(got) - float(want)) <= LOSS_TOL
+    ref_leaves = tree.leaves(params_from_reference(_np_tree(ref_grads), port_cfg, "cpu",
+                                                   masters=True))
+    grads = tree.leaves(grads)
+    assert len(ref_leaves) == len(grads) == len(tree.leaves(params))
+    for g, r in zip(grads, ref_leaves):
+        assert g.shape == r.shape and g.dtype == torch.float32
+        bound = GRAD_TOL[dtype] * float(r.abs().max())
+        assert float((g - r).abs().max()) <= bound
+        assert bool(g.any())
 
 
 # ------------------------------------------------------------------ kernels
@@ -250,6 +290,81 @@ def test_flash_attention_gradients_equal_plain_autograd(dtype, window):
     for a, b in zip(got, want):
         assert a.dtype == dtype and torch.equal(a, b)
     assert fa.LAUNCHES == 0
+
+
+def _mlstm_grads(fn, args, state, dout, chunk):
+    leaves = [t.clone().requires_grad_() for t in args]
+    st = None if state is None else tuple(t.clone().requires_grad_() for t in state)
+    h, (S, n) = fn(*leaves, state=st, chunk=chunk)
+    inputs = leaves + list(st or ())
+    return (h, S, n), torch.autograd.grad((h, S, n), inputs, dout)
+
+
+def _mlstm_case(BH, S, Dh, dtype, carried, device="cpu", seed=0):
+    g = torch.Generator().manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g)  # noqa: E731
+    args = [rnd(BH, S, Dh).to(dtype), (rnd(BH, S, Dh) / Dh**0.5).to(dtype),
+            rnd(BH, S, Dh).to(dtype),
+            torch.nn.functional.logsigmoid(rnd(BH, S) + 2.0), rnd(BH, S).clamp(-2, 1)]
+    state = (rnd(BH, Dh, Dh) * 0.1, rnd(BH, Dh)) if carried else None
+    dout = (rnd(BH, S, Dh).to(dtype), rnd(BH, Dh, Dh), rnd(BH, Dh))
+    move = lambda ts: None if ts is None else [t.to(device) for t in ts]  # noqa: E731
+    return move(args), move(state), tuple(move(dout))
+
+
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_chunk_gradients_equal_plain_autograd(dtype, carried):
+    """On the host the wrapper's forward is the twin and its backward the
+    twin's recompute: h, the final state and every gradient (q, k, v, both
+    log gates, the initial state) identical to autograd through the twin,
+    over three chunks."""
+    args, state, dout = _mlstm_case(3, 24, 16, dtype, carried)
+    (out, got), (out_p, want) = (_mlstm_grads(fn, args, state, dout, 8)
+                                 for fn in (mc.mlstm_chunk, mc.mlstm_chunk_plain))
+    assert len(got) == len(want) == (7 if carried else 5)
+    for a, b in zip(out + got, out_p + want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert mc.LAUNCHES == 0
+
+
+def test_mlstm_chunk_gradients_finite_where_masked_gates_overflow():
+    """Forget gates of log -60 a position: the masked pairs' gates reach
+    60 x 15 and their exponentials overflow.  The twin masks before the
+    exponential, so the gradients stay finite (the reference's jnp scan,
+    which masks after it, gives non-finite log_f gradients here: its exp
+    backward multiplies a zero cotangent by inf), and h is the reference
+    oracle's."""
+    args, _, _ = _mlstm_case(2, 32, 16, torch.float32, False, seed=4)
+    args[3] = torch.full_like(args[3], -60.0)
+    leaves = [t.clone().requires_grad_() for t in args]
+    h, _ = mc.mlstm_chunk(*leaves, chunk=16)
+    grads = torch.autograd.grad(h.sum(), leaves)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    want, _ = mlstm_ref(*(jnp.asarray(t.numpy()) for t in args))
+    np.testing.assert_allclose(h.detach().numpy(), np.asarray(want), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("carried", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mlstm_chunk_gradients_on_the_card(dtype, carried):
+    """On the card the forward is the kernel (one launch; h and the state
+    within the kernel tests' bounds of the twin's) and the gradients are
+    bit for bit autograd through the twin on the same card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, state, dout = _mlstm_case(4, 96, 64, dtype, carried, "cuda")
+    before = mc.LAUNCHES
+    (out, got) = _mlstm_grads(mc.mlstm_chunk, args, state, dout, 32)
+    assert mc.LAUNCHES == before + 1
+    (out_p, want) = _mlstm_grads(mc.mlstm_chunk_plain, args, state, dout, 32)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    torch.testing.assert_close(out[1], out_p[1], rtol=2e-4, atol=2e-4)
+    err = (out[0].float() - out_p[0].float()).abs()
+    assert bool((err <= 2**-7 * out_p[0].float().abs() + 2e-4).all())
 
 
 # ------------------------------------------------------------------ trainer
@@ -320,13 +435,76 @@ def test_compressed_step_is_the_trainers_step():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("flag", [["--checkpoint-dir", "ckpt"], ["--inject-failure", "2"],
-                                  ["--inject-failure", "2", "--plan-collectives"]])
-def test_train_unported_flags_raise(flag):
-    """Checkpointing and failure injection are refused before anything
-    runs, the collective planner (ported) included."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 10"):
-        train_mod.main(["--device", "cpu", "--steps", "1", *flag])
+def test_train_main_default_arch_on_the_host(capsys):
+    """No ``--arch``: the reference's default, stablelm-1.6b, reduced."""
+    res = train_mod.main(["--steps", "2", "--batch", "2", "--seq", "16", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "training stablelm-1.6b-smoke" in out and out.rstrip().endswith("done.")
+    assert res.steps == [0, 1] and all(np.isfinite(res.losses))
+    assert res.restarts == 0 and res.stragglers == [] and res.save_s == []
+
+
+@pytest.mark.parametrize("extra", [[], ["--plan-collectives"]])
+def test_inject_failure_without_a_directory_exits(extra, capsys):
+    """The reference's message, after the steps before the failure ran."""
+    with pytest.raises(SystemExit, match="injected node failure at step 2 — rerun with "
+                                         "--checkpoint-dir for automatic recovery"):
+        train_mod.main(["--device", "cpu", "--steps", "4", "--batch", "2", "--seq", "16",
+                        "--inject-failure", "2", "--log-every", "1", *extra])
+    out = capsys.readouterr().out
+    assert [line.split()[1] for line in out.splitlines() if line.startswith("step")] == \
+        ["0", "1"]
+    assert ("[planner]" in out) == bool(extra)
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_recovered_run_equals_its_replay_by_hand(tmp_path, compress, capsys):
+    """xLSTM through ``train.main --checkpoint-dir --inject-failure 4
+    --checkpoint-every 2``: steps 0-3 run, step 4 fails, the save of step 2
+    is restored and steps 3-5 run on batches 4-6 (the iterator is not
+    rewound), the error feedback carried over.  The same steps replayed by
+    hand from an in-memory copy of the state after step 2 give the same
+    losses, parameters, moments and error feedback, bit for bit."""
+    argv = ["--arch", "xlstm-1.3b", "--steps", "6", "--batch", "2", "--seq", "16",
+            "--checkpoint-every", "2", "--inject-failure", "4", "--checkpoint-dir",
+            str(tmp_path), "--device", "cpu", "--log-every", "1"]
+    res = train_mod.main(argv + (["--compress-grads"] if compress else []))
+    out = capsys.readouterr().out
+    assert "recovered from 1 failure(s) via checkpoint restore" in out
+    assert res.restarts == 1 and res.steps == [0, 1, 2, 3, 3, 4, 5]
+    assert len(res.save_s) == len(res.write_s) == 2 and len(res.restore_s) == 1
+
+    cfg = train_mod.config_for("xlstm-1.3b")
+    model = build_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0), masters=True)
+    opt = AdamW(schedule=cosine_schedule(3e-3, 6 // 10 + 1, 6))
+    step_fn = make_compressed_step(model, opt) if compress else make_train_step(model, opt)
+    opt_state, errors, losses, saved = opt.init(params), None, [], None
+    data = make_batch_iterator(SyntheticTokens(cfg.vocab_size, 16, 2))
+    for i, step in enumerate([0, 1, 2, 3, 3, 4, 5]):
+        if i == 4:  # the failure: back to the state after step 2
+            params, opt_state = saved
+        if compress:
+            gen = torch.Generator().manual_seed(train_mod.noise_seed(step))
+            params, opt_state, errors, stats = step_fn(params, opt_state, errors, next(data), gen)
+        else:
+            params, opt_state, stats = step_fn(params, opt_state, next(data))
+        losses.append(float(stats["loss"]))
+        if i == 2:
+            saved = (tree.map_leaves(torch.clone, params),
+                     {**tree.map_leaves(torch.clone, {k: opt_state[k] for k in ("m", "v")}),
+                      "count": opt_state["count"]})
+    data.close()
+    assert losses == res.losses
+    assert res.opt_state["count"] == opt_state["count"] == 6
+    got = tree.leaves(res.params) + tree.leaves(res.opt_state["m"]) + tree.leaves(res.opt_state["v"])
+    want = tree.leaves(params) + tree.leaves(opt_state["m"]) + tree.leaves(opt_state["v"])
+    if compress:
+        got += tree.leaves(res.error_feedback)
+        want += tree.leaves(errors)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_config_for_reduces_as_the_reference():
