@@ -249,11 +249,43 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    f32 and bf16; a reduced recurrentgemma in f32 served on the card and on
    the host (identical tokens, logits within 2e-4) and trained 3 steps
    (as phase 13's reduced xLSTM);
-15. the ``kernels`` JSON line (the calendar kernels' and `port_stats`'
+15. serving ``minicpm3-4b`` whole (62 MLA layers, d_model 2560, 40 heads,
+   kv_lora_rank 256, vocab 73448; random weights from a seed) through
+   `serve` as phase 6 serves gemma3: every request gets its tokens, every
+   logit is finite, no kernel launched (MLA's keys of 288 and values of 256
+   run `layers.chunked_attention`, plain PyTorch, as the reference's jnp
+   route); tokens/s, prefill seconds a wave, ms a tick and peak memory
+   beside the card; decode after a prefill of P - 1 tokens within 4 bf16
+   units of the teacher-forced forward's largest logit; the reduced
+   minicpm3 in f32 served (identical tokens, logits within 2e-4) and
+   trained 3 steps (the host from the card's state each step) card
+   against host;
+16. serving ``qwen3-moe-235b-a22b`` at its published widths (128 experts,
+   top 8, d_ff 1536, d_model 4096, 64 query heads on 4 kv heads, vocab
+   151936), cut to the deepest prefix of its 94 layers whose bf16 weights
+   leave 12 GB of the card free (`moe_depth`), the same way: `flash_attention`
+   launched waves x (1 + max_new) x layers times; the share of (token,
+   slot) pairs dropped at the published capacity factor 1.25 on one
+   prefill wave; decode against the teacher-forced forward at capacity
+   factor E / K (no drops), each token's chosen experts recorded on the
+   forward, the prefill and the decode: rows whose choices all agree
+   within 4 bf16 units, every disagreeing choice a near tie (within 4 bf16
+   units in the forward); the reduced qwen3-moe and dbrx-132b card against
+   host, served and trained;
+17. serving ``llama-3.2-vision-11b`` whole (40 layers, 8 of them cross
+   layers over (4, 1601, 7680) encoder inputs; 48 `flash_attention`
+   launches a forward) and ``musicgen-medium`` whole (48 cross layers over
+   (4, 64, 768), 4 codebooks; 96 a forward), each as above with teacher
+   forcing (the encoder passed to every call); `flash_attention` with
+   ``causal=False`` against its twin at llama-vision's cross prefill (4, 32,
+   32, 600, 1601, 128) and decode (4, 32, 32, 1, 1601, 128) and musicgen's
+   (4, 24, 24, 600, 64, 64) and (4, 24, 24, 1, 64, 64), in f32 and bf16;
+   both reduced models card against host, served and trained;
+18. the ``kernels`` JSON line (the calendar kernels' and `port_stats`'
    launches summed over phases 3, 8, 10, 11 and 12, `lp_terms_batch`'s over
    phases 3, 11 and 12, `mlstm_chunk`'s over phases 7 and 13, `quantize`'s
-   and `dequantize`'s over 8 and 13, `flash_attention`'s over 6 and 14),
-   then ``{"ok": true, "device": ...}`` last.
+   and `dequantize`'s over 8 and 13, `flash_attention`'s over 6 and
+   14-17), then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero as well without a CUDA device.
@@ -261,6 +293,7 @@ result.  It exits non-zero as well without a CUDA device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -2124,7 +2157,9 @@ def card_vs_host_training(torch, small, label, seq=40, resync=False):
         m = build_model(small, dev)
         p = m.cast(p_cpu, masters=True) if dev == "cuda" else p_cpu
         step_fns[dev], states[dev] = make_compressed_step(m, opt), (p, opt.init(p), None)
-        datas[dev] = make_batch_iterator(SyntheticTokens(small.vocab_size, seq, 2))
+        datas[dev] = make_batch_iterator(SyntheticTokens(
+            small.vocab_size, seq, 2, num_codebooks=small.num_codebooks,
+            encoder_shape=(small.encoder_len, small.encoder_dim) if small.encoder_dim else None))
         runs[dev] = {"loss": [], "grads": []}
     host = functools.partial(tree.map_leaves, lambda t: t.cpu())
     try:
@@ -3739,6 +3774,301 @@ def phase_rglru(torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phases 15-17: the remaining families (MLA, experts, cross-attention and
+# audio codebooks)
+# ---------------------------------------------------------------------------
+
+#: The card's ``name, power.limit`` (phase 1), written beside every time.
+CARD = ""
+#: Free device memory qwen3-moe's depth cut leaves beside its weights.
+MOE_FREE_BYTES = 12e9
+
+
+def serve_counted(torch, cfg, params, flash_per_forward):
+    """`serve` at ``SERVE`` after one uncounted warm-up wave, with launch
+    counts: every request gets its tokens, every logit is finite and of the
+    config's shape, `flash_attention` launched exactly waves x (1 +
+    max_new) x ``flash_per_forward`` times and no other kernel.  Logs
+    tokens/s, prefill seconds per wave, ms per tick and peak memory beside
+    the card.  Returns the counts."""
+    from repro_torch.launch.serve import serve
+
+    serve(cfg, params, **{**SERVE, "requests": 1, "max_new": 1})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = serve(cfg, params, **SERVE)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_req, new = SERVE["requests"], SERVE["max_new"]
+    waves = -(-n_req // SERVE["slots"])
+    check((res.waves, res.ticks, res.tokens) == (waves, waves * new, n_req * new),
+          f"{cfg.name} serve: waves/ticks/tokens {res.waves}/{res.ticks}/{res.tokens}")
+    for rid, toks in res.produced.items():
+        check(len(toks) == new and all(0 <= t < cfg.vocab_size for t in toks),
+              f"{cfg.name} serve: request {rid} got {toks}")
+    shape = ((cfg.num_codebooks,) if cfg.num_codebooks else ()) + (cfg.vocab_size,)
+    for w, wave in enumerate(res.logits):
+        for lg in wave:
+            check(tuple(lg.shape[1:]) == shape and bool(torch.isfinite(lg).all()),
+                  f"{cfg.name} serve: wave {w} logits not finite or not (n, {shape})")
+    expect = res.waves * (1 + new) * flash_per_forward
+    check(counts["flash_attention"] == expect,
+          f"{cfg.name} serve: flash_attention launched {counts['flash_attention']} times, "
+          f"expected {expect} = waves x (1 + max_new) x {flash_per_forward}")
+    others = {k: v for k, v in counts.items() if k != "flash_attention"}
+    check(not any(others.values()), f"{cfg.name} serve: other kernels launched {others}")
+    ticks_ms = sorted(1e3 * t for t in res.tick_s)
+    log(f"serving {cfg.name}: {n_req} requests x {new} tokens, prompts of "
+        f"{SERVE['prompt_len']}, {SERVE['slots']} slots: {res.waves} waves, {res.ticks} "
+        f"ticks, {res.tokens} tokens in {res.seconds:.4f} s ({res.tokens / res.seconds:.2f} "
+        f"tokens/s); prefill s per wave {[round(t, 4) for t in res.prefill_s]}; decode ms "
+        f"per tick median {statistics.median(ticks_ms):.3f} (min {ticks_ms[0]:.3f}, max "
+        f"{ticks_ms[-1]:.3f}); peak device memory {peak / 1e9:.3f} GB "
+        f"(torch.cuda.max_memory_allocated); {CARD}")
+    log(f"serving {cfg.name}: launches {json.dumps(counts)} (flash_attention expected "
+        f"{expect} = {res.waves} waves x (1 + {new}) x {flash_per_forward})")
+    log(f"serving {cfg.name}: greedy tokens of request 0: {res.produced[0]}")
+    return counts
+
+
+class RouteLog:
+    """Inside ``with``: every `moe.route` call's chosen experts (sorted per
+    token, (B, S, K)), its router logits ((B, S, E) f32, as `route`
+    computes them from the bf16 product) and its kept share, on the host,
+    per call, in the order of the layers run."""
+
+    def __init__(self, torch, B, S):
+        self.torch, self.B, self.S, self.calls = torch, B, S, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        route = self.route = moe.route
+        self.moe = moe
+
+        def spy(h, w, cfg, C):
+            out = route(h, w, cfg, C)
+            logits = (h @ w.to(h.dtype)).float().reshape(self.B, self.S, -1)
+            experts = out[1].sort(dim=-1).values.reshape(self.B, self.S, -1)
+            self.calls.append((experts.cpu(), logits.cpu(), out[3].float().mean().item()))
+            return out
+
+        moe.route = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.route
+
+
+def routing_differences(torch, cfg, logs, P):
+    """Compare each token's chosen experts on the prefill (positions < P -
+    1) and the decode (position P - 1) with the forward's, layer by layer.
+    A choice can differ only where the forward's gap between its K-th and
+    (K+1)-th logits is at most twice the two runs' largest logit
+    difference at that token (checked): such a token sat near a tie.
+    Logs per layer the choices that differ and that largest difference in
+    bf16 units of the logits; returns which rows saw any difference."""
+    K = cfg.top_k
+    flipped = torch.zeros(logs[0].B, dtype=torch.bool)
+    lines = []
+    for layer, ((e_f, lg_f, _), (e_p, lg_p, _), (e_d, lg_d, _)) in enumerate(
+            zip(*(lg.calls for lg in logs))):
+        e_o, lg_o = torch.cat([e_p, e_d], dim=1), torch.cat([lg_p, lg_d], dim=1)
+        differ = (e_o != e_f).any(dim=-1)  # (B, P)
+        dev = (lg_o - lg_f).abs().amax(dim=-1)
+        top = lg_f.sort(dim=-1, descending=True).values
+        gap = top[..., K - 1] - top[..., K]
+        check(bool((gap[differ] <= 2 * dev[differ]).all()),
+              f"{cfg.name} layer {layer}: a token chose other experts than the forward "
+              f"at a gap wider than the two runs' logits differ")
+        flipped |= differ.any(dim=1)
+        unit = 2.0 ** (torch.floor(torch.log2(lg_f.abs().amax().clamp_min(1e-30))) - 7)
+        lines.append(f"{int(differ[:, : P - 1].sum())}+{int(differ[:, P - 1].sum())} "
+                     f"(dev {float(dev.max() / unit):.3g})")
+    log(f"{cfg.name} teacher forcing: choices differing from the forward per layer, "
+        f"prefill+decode tokens (largest logit difference, bf16 units): " + "; ".join(lines)
+        + f"; rows with none {(~flipped).tolist()}")
+    return flipped
+
+
+def teacher_forcing(torch, cfg, model, params, label, routed=False):
+    """Decode after a prefill of P - 1 tokens against the teacher-forced
+    forward over all P (cache writes, q_offset, the encoder at every call):
+    within 4 bf16 units of the largest logit, per row.  With ``routed``
+    (mixtures of experts) every token's chosen experts are recorded on all
+    three runs (`routing_differences`): a row is gated where the prefill
+    and the decode chose as the forward did at every token and layer, and
+    at least one row must be."""
+    P, B = SERVE["prompt_len"], SERVE["slots"]
+    rng = np.random.default_rng(SERVE["seed"] + 1)
+    tail = (cfg.num_codebooks,) if cfg.num_codebooks else ()
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, P, *tail))).cuda()
+    extra = {}
+    if cfg.encoder_dim:
+        extra["encoder"] = torch.from_numpy(
+            rng.standard_normal((B, cfg.encoder_len, cfg.encoder_dim))).to(torch.bfloat16).cuda()
+    logs = [RouteLog(torch, B, P), RouteLog(torch, B, P - 1), RouteLog(torch, B, 1)]
+    with torch.inference_mode():
+        with logs[0] if routed else contextlib.nullcontext():
+            full, _ = model.forward(params, {"tokens": tokens, **extra})
+        want = full[:, -1].float()
+        del full
+        cache = model.init_cache(B, P)
+        with logs[1] if routed else contextlib.nullcontext():
+            model.forward(params, {"tokens": tokens[:, : P - 1], **extra}, cache=cache, pos=0)
+        with logs[2] if routed else contextlib.nullcontext():
+            got, _ = model.decode_step(params, cache, {"tokens": tokens[:, P - 1 :], **extra},
+                                       P - 1)
+    del cache
+    diff = (got.float() - want).abs().reshape(B, -1).max(dim=-1).values.cpu()
+    tol = 4 * bf16_units(torch, want)
+    gated = torch.ones(B, dtype=torch.bool)
+    if routed:
+        gated = ~routing_differences(torch, cfg, logs, P)
+    same = (got.float().argmax(-1) == want.argmax(-1)).reshape(B, -1).all(-1)
+    log(f"{label} teacher forcing ({B} x {P} tokens): decode vs forward max abs per row "
+        f"{[round(float(x), 4) for x in diff]}, bound {tol:.4g} (4 bf16 units at |logit| max "
+        f"{float(want.abs().max()):.4g}) on rows {gated.tolist()}; argmax equal in "
+        f"{int(same.sum())} of {B} rows")
+    check(bool(gated.any()), f"{label} teacher forcing: no row chose as the forward did")
+    check(bool((diff[gated] <= tol).all()),
+          f"{label} teacher forcing: decode differs from forward by {diff.tolist()} > {tol}")
+
+
+def family_card_vs_host(torch, name):
+    """The reduced f32 config of ``name`` on the card and on the host:
+    served (identical tokens, logits within 2e-4) and trained 3 steps, the
+    host starting each step from the card's state (`card_vs_host_training`)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as T
+
+    small = get_arch(name).reduced(vocab_size=512, compute_dtype="float32")
+    card_vs_host_serving(torch, small, f"reduced {name}", prompt_len=40)
+    card_vs_host_training(
+        torch, dataclasses.replace(T.config_for(name), compute_dtype="float32"),
+        f"reduced {name}", resync=True)
+
+
+def load_family(torch, cfg, what):
+    """`build_model` and random weights from ``SERVE``'s seed on the card;
+    logs the count, bytes and init seconds."""
+    from repro_torch.models.model import build_model, param_bytes, param_count
+
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(SERVE["seed"]))
+    torch.cuda.synchronize()
+    log(f"serving {cfg.name}: {param_count(params)} parameters, "
+        f"{param_bytes(params) / 1e9:.3f} GB held ({what}), init "
+        f"{time.perf_counter() - t0:.2f} s; layers {cfg.num_layers} "
+        f"({', '.join(f'{cfg.layer_kinds.count(k)} {k}' for k in dict.fromkeys(cfg.layer_kinds))})")
+    return model, params
+
+
+def phase_mla(torch):
+    """minicpm3-4b whole through `serve` (MLA runs `chunked_attention`: no
+    kernel launch), teacher forcing, then the reduced model card vs host."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("minicpm3-4b")
+    model, params = load_family(torch, cfg, "bf16 matrices, f32 norms")
+    counts = serve_counted(torch, cfg, params, flash_per_forward=0)
+    teacher_forcing(torch, cfg, model, params, cfg.name)
+    del model, params
+    torch.cuda.empty_cache()
+    family_card_vs_host(torch, "minicpm3-4b")
+    return counts
+
+
+def moe_depth(torch, cfg):
+    """qwen3-moe's deepest layer prefix whose bf16 weights leave
+    ``MOE_FREE_BYTES`` of the card's free memory."""
+    free, _ = torch.cuda.mem_get_info()
+    D, F, E, H, Hkv, Dh, V = (cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.num_heads,
+                              cfg.num_kv_heads, cfg.head_dim, cfg.vocab_size)
+    layer = 2 * (3 * E * D * F + D * E + D * (H + 2 * Hkv) * Dh + H * Dh * D) + 8 * D
+    layers = int((free - MOE_FREE_BYTES - 2 * V * D) // layer)
+    log(f"qwen3-moe depth cut: {free / 1e9:.3f} GB free, {layer / 1e9:.3f} GB a layer, "
+        f"embedding {2 * V * D / 1e9:.3f} GB: {layers} of {cfg.num_layers} layers leave "
+        f"{(free - 2 * V * D - layers * layer) / 1e9:.3f} GB")
+    check(1 <= layers <= cfg.num_layers, f"qwen3-moe: {layers} layers fit")
+    return layers
+
+
+def phase_moe(torch):
+    """qwen3-moe-235b-a22b at its published widths, cut in depth to fit the
+    card: served (drop share at the published capacity factor logged),
+    teacher forcing at a no-drop capacity; the reduced qwen3-moe and dbrx
+    card vs host."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import build_model
+
+    full = get_arch("qwen3-moe-235b-a22b")
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(full, num_layers=moe_depth(torch, full))
+    model, params = load_family(torch, cfg, f"bf16 matrices and expert stacks, f32 norms; "
+                                f"the first {cfg.num_layers} of {full.num_layers} layers")
+    counts = serve_counted(torch, cfg, params, flash_per_forward=cfg.num_layers)
+
+    # The dispatch at the published capacity factor on one prefill wave.
+    P, B = SERVE["prompt_len"], SERVE["slots"]
+    tokens = torch.from_numpy(np.random.default_rng(SERVE["seed"] + 2).integers(
+        0, cfg.vocab_size, (B, P))).cuda()
+    with torch.inference_mode(), RouteLog(torch, B, P) as routes:
+        model.forward(params, {"tokens": tokens})
+    kept = [k for *_, k in routes.calls]
+    from repro_torch.models import moe
+
+    C = moe.moe_capacity(B * P, cfg)
+    log(f"qwen3-moe dispatch (capacity factor {cfg.capacity_factor}, {B} x {P} tokens, "
+        f"G = {moe._num_groups(cfg, B * P)}, C = {C} rows an expert): (token, slot) pairs "
+        f"dropped per layer {[round(1 - k, 5) for k in kept]}, mean "
+        f"{1 - sum(kept) / len(kept):.5f}")
+
+    # Teacher forcing at capacity_factor = E / K: C >= the tokens of a group.
+    nodrop = dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+    check(moe.moe_capacity(B * P, nodrop) >= B * P, "no-drop capacity below the tokens")
+    teacher_forcing(torch, nodrop, build_model(nodrop), params, "qwen3-moe", routed=True)
+    del model, params
+    torch.cuda.empty_cache()
+    for name in ("qwen3-moe-235b-a22b", "dbrx-132b"):
+        family_card_vs_host(torch, name)
+    return counts
+
+
+def phase_cross(torch):
+    """llama-3.2-vision-11b and musicgen-medium whole through `serve`,
+    teacher forcing, `flash_attention` held at the cross shapes, and the
+    reduced models card vs host."""
+    from repro_torch.configs import get_arch
+
+    counts = {}
+    for name in ("llama-3.2-vision-11b", "musicgen-medium"):
+        cfg = get_arch(name)
+        model, params = load_family(torch, cfg, "bf16 matrices, f32 norms")
+        per_forward = cfg.num_layers + cfg.layer_kinds.count("cross")
+        c = serve_counted(torch, cfg, params, flash_per_forward=per_forward)
+        counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        teacher_forcing(torch, cfg, model, params, cfg.name)
+        del model, params
+        torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(31)
+    P = SERVE["prompt_len"]
+    for label, case in (
+        ("llama-vision cross prefill", (4, 32, 32, P, 1601, 128, False, None, 0)),
+        ("llama-vision cross decode", (4, 32, 32, 1, 1601, 128, False, None, 0)),
+        ("musicgen cross prefill", (4, 24, 24, P, 64, 64, False, None, 0)),
+        ("musicgen cross decode", (4, 24, 24, 1, 64, 64, False, None, 0)),
+    ):
+        for dtype in (torch.float32, torch.bfloat16):
+            hold_flash_case(torch, label, case, dtype, gen)
+    for name in ("llama-3.2-vision-11b", "musicgen-medium"):
+        family_card_vs_host(torch, name)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -3763,7 +4093,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
-    card = smi.stdout.strip().splitlines()[0]
+    global CARD
+    card = CARD = smi.stdout.strip().splitlines()[0]
     log(card)
     log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
@@ -3897,12 +4228,22 @@ def main() -> int:
     rglru_counts = phase_rglru(torch)
     lap("phase 14 (recurrentgemma-2b)")
 
-    # Phase 15: the kernels line (each kernel's launches on its main paths:
+    # Phases 15-17: the remaining families at full width (qwen3-moe cut in
+    # depth), each served, teacher-forced and held card against host.
+    mla_counts = phase_mla(torch)
+    lap("phase 15 (MLA: minicpm3-4b)")
+    moe_counts = phase_moe(torch)
+    lap("phase 16 (experts: qwen3-moe-235b-a22b, dbrx-132b)")
+    cross_counts = phase_cross(torch)
+    lap("phase 17 (cross-attention: llama-3.2-vision-11b, musicgen-medium)")
+
+    # Phase 18: the kernels line (each kernel's launches on its main paths:
     # the calendar kernels' and port_stats' grow by the planner's run in
     # phase 8, by ours_ls's runs in phase 10, by the streams of phase 11 and
     # by the sweeps of phase 12, lp_terms_batch's by the streams' and the
     # sweeps' LPs, mlstm_chunk's, quantize's and dequantize's by phase 13's
-    # training and flash_attention's by phase 14's serve), then the result.
+    # training and flash_attention's by the serves of phases 14-17), then
+    # the result.
     for name in ("pair_resolve", "port_stats"):
         counts[name] += (train_counts[name] + sum(c[name] for c in refine_counts.values())
                          + stream_counts[name] + fabric_counts[name])
@@ -3912,7 +4253,8 @@ def main() -> int:
                                      + fabric_counts["event_resolve"])
     counts["lp_terms"] = single_counts["lp_terms"] + fabric_counts["lp_terms"]
     counts["event_resolve"] = flow_counts["event_resolve"]
-    counts["flash_attention"] = serve_counts["flash_attention"] + rglru_counts["flash_attention"]
+    counts["flash_attention"] = sum(c["flash_attention"] for c in (
+        serve_counts, rglru_counts, mla_counts, moe_counts, cross_counts))
     counts["mlstm_chunk"] = xlstm_counts["mlstm_chunk"] + xtrain_counts["mlstm_chunk"]
     counts["quantize"] = train_counts["quantize"] + xtrain_counts["quantize"]
     counts["dequantize"] = train_counts["dequantize"] + xtrain_counts["dequantize"]

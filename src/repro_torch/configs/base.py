@@ -68,9 +68,10 @@ class ModelConfig:
 
     # Attention implementation of the JAX package: "chunked" (pure jnp,
     # dry-run/CPU) or "flash" (Pallas kernel, TPU runtime).  Kept so that
-    # configurations compare equal; the port always runs its flash kernel
-    # on the card (its plain twin on the host) and reads neither this nor
-    # q_chunk / kv_chunk.
+    # configurations compare equal; the port runs GQA and cross-attention
+    # through its flash kernel on the card (its plain twin on the host) and
+    # reads neither this nor q_chunk.  MLA runs the port's
+    # chunked_attention, in chunks of kv_chunk keys.
     attention_impl: str = "chunked"
     q_chunk: int = 512
     kv_chunk: int = 1024

@@ -75,12 +75,16 @@ def params_from_reference(
     ``params`` is ``repro.models.model.build_model(cfg).init(key)``'s nested
     dict, its leaves as arrays NumPy can read: layer ``i`` of a config with
     a unit of ``u`` kinds repeated ``reps`` times sits at ``units[i % u]``,
-    row ``i // u`` of every stacked leaf, for ``i < reps * u``, and at
-    ``rem[i - reps * u]`` after that.  Each layer's blocks keep their names
-    (``attn`` and ``ffn``; ``mix`` for mLSTM, sLSTM and RG-LRU, whose
-    layers keep their ``ffn``).  Matrices and the embedding are held in the
-    compute dtype, vectors, sLSTM's ``r`` and RG-LRU's ``w_r`` and ``w_i``
-    in f32, on ``device`` (all in f32 with ``masters``).
+    row ``i // u`` of every stacked leaf (the expert stacks, 4-D there,
+    give (E, ., .) leaves), for ``i < reps * u``, and at ``rem[i - reps *
+    u]`` after that.  Each layer's blocks keep their names (``attn`` for
+    attention and MLA, ``cross`` beside it in a cross layer, ``ffn`` for
+    the FFN or the experts, ``mix`` for mLSTM, sLSTM and RG-LRU); the
+    top-level leaves keep theirs (``final_norm``, and ``embed`` or
+    ``embed_{c}`` per codebook).  Matrices, expert stacks and embeddings
+    are held in the compute dtype, vectors, sLSTM's ``r`` and RG-LRU's
+    ``w_r`` and ``w_i`` in f32, on ``device`` (all in f32 with
+    ``masters``).  The reference's gradient trees map the same way.
     """
     model = build_model(cfg, device)
     u = len(tuple(cfg.layer_unit))
@@ -96,8 +100,6 @@ def params_from_reference(
             for blk, p in tree.items()
         }
 
-    return model.cast({
-        "layers": [layer(i) for i in range(cfg.num_layers)],
-        "final_norm": torch.from_numpy(np.array(params["final_norm"])),
-        "embed": torch.from_numpy(np.array(params["embed"])),
-    }, masters)
+    top = {k: torch.from_numpy(np.array(v)) for k, v in params.items()
+           if k not in ("units", "rem")}
+    return model.cast({"layers": [layer(i) for i in range(cfg.num_layers)], **top}, masters)

@@ -36,6 +36,7 @@ Usage:
   python -m repro_torch.launch.train --arch gemma3-1b --steps 3 --plan-collectives --device cpu
   python -m repro_torch.launch.train --arch xlstm-1.3b --steps 6 --checkpoint-every 2 \
       --inject-failure 3 --checkpoint-dir /tmp/ckpt --device cpu
+  python -m repro_torch.launch.train --arch musicgen-medium --steps 3 --device cpu
 """
 
 from __future__ import annotations
@@ -141,7 +142,10 @@ def train(
         step_fn = make_compressed_step(model, opt)
     else:
         step_fn = make_train_step(model, opt, num_microbatches=microbatches)
-    data = make_batch_iterator(SyntheticTokens(cfg.vocab_size, seq, batch))
+    data = make_batch_iterator(SyntheticTokens(
+        cfg.vocab_size, seq, batch, num_codebooks=cfg.num_codebooks,
+        encoder_shape=(cfg.encoder_len, cfg.encoder_dim) if cfg.encoder_dim else None,
+    ))
     ckpt = Checkpointer(checkpoint_dir) if checkpoint_dir else None
     injector = FailureInjector(
         fail_at_steps=(inject_failure,) if inject_failure else (),

@@ -1,4 +1,6 @@
-"""Dense model blocks (port of `repro.models.layers`, the dense part).
+"""Model blocks (port of `repro.models.layers`): RMSNorm, RoPE, GQA
+attention, multi-head latent attention (MLA), cross-attention, the gated
+FFN, and the reference's chunked online-softmax attention.
 
 Conventions, as in the reference:
   * activations are (batch, seq, ...); the residual stream is in
@@ -10,12 +12,17 @@ Conventions, as in the reference:
     (`repro_torch.models.model.Model.cast`), where the cast is a no-op and
     a decode step does not reread f32 weights.  Norm weights are read in
     f32;
-  * attention runs through the ported flash kernel
+  * GQA attention and cross-attention run through the ported flash kernel
     (`repro_torch.kernels.flash_attention`) on the card and its plain twin
     on the host, in training too: its backward recomputes through the twin,
-    as the reference's flash route does.  The reference's second jnp
-    formulation (``chunked_attention``, with its own custom VJP) is not
-    ported; both of its routes compute the same function.
+    as the reference's flash route does.  Cross-attention is non-causal
+    over the encoder's keys, none masked, where the reference runs
+    ``chunked_attention``: both compute the same function;
+  * MLA runs `chunked_attention`, the reference's own jnp formulation
+    ported as plain PyTorch (online softmax over KV chunks, with its
+    custom VJP as `_ChunkedAttention`): its keys are kv_lora_rank +
+    qk_rope_dim wide and its values kv_lora_rank, shapes the flash kernel
+    does not take (one head dim in 16..256, v shaped like k).
 
 The reference's sharding hints (``launch.sharding.constrain``) have no
 counterpart: the port runs on one card.
@@ -32,8 +39,12 @@ from repro_torch.kernels.flash_attention import flash_attention
 
 __all__ = [
     "dense_init", "embed_init", "rms_norm", "rope", "f32_products",
-    "attn_init", "attn_apply", "attn_init_cache", "ffn_init", "ffn_apply",
+    "chunked_attention", "attn_init", "attn_apply", "attn_init_cache",
+    "mla_init", "mla_apply", "mla_init_cache", "cross_init", "cross_apply",
+    "ffn_init", "ffn_apply",
 ]
+
+NEG_INF = -1e30
 
 
 # --------------------------------------------------------------------------
@@ -83,6 +94,142 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> to
     x1, x2 = x.to(torch.float32).split(half, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# chunked online-softmax attention (GQA, causal, sliding window)
+# --------------------------------------------------------------------------
+
+
+def _chunk_mask(q_positions, kv_valid, c, ck, causal, window):
+    """(B, 1, 1, Sq, ck) visibility of kv chunk ``c``: key j < kv_valid,
+    j <= query position (causal), position - j < window."""
+    kj = (c * ck + torch.arange(ck, device=q_positions.device)).to(torch.float32)
+    mask = (kj[None, :] < kv_valid[:, None])[:, None, None, None, :]
+    qi = q_positions[:, None, None, :, None]
+    kjb = kj[None, None, None, None, :]
+    if causal:
+        mask = mask & (qi >= kjb)
+    if window is not None:
+        mask = mask & ((qi - kjb) < window)
+    return mask
+
+
+def _heads(q, k, v, scale):
+    """q as (B, Hkv, G * Sq, D) f32 times ``scale``; k and v as (B, Hkv,
+    Skv, .) views."""
+    B, Sq, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qh = q.reshape(B, Sq, Hkv, Hq // Hkv, D).permute(0, 2, 3, 1, 4)
+    qh = qh.to(torch.float32).reshape(B, Hkv, -1, D) * scale
+    return qh, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+
+
+def _chunked_fwd(q, k, v, q_positions, kv_valid, causal, window, ck):
+    """Online-softmax forward over chunks of ``ck`` keys (Skv a multiple of
+    it).  Returns out (B, Sq, Hq, Dv) in q's dtype and lse (B, Hkv, G, Sq),
+    the f32 logsumexp of the visible logits (+1e30 where no key is
+    visible, so the backward's probabilities vanish there)."""
+    B, Sq, Hq, D = q.shape
+    Hkv, Dv = v.shape[2], v.shape[3]
+    G = Hq // Hkv
+    qh, kh, vh = _heads(q, k, v, D**-0.5)
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, device=q.device)
+    l = torch.zeros((B, Hkv, G, Sq), device=q.device)
+    acc = torch.zeros((B, Hkv, G, Sq, Dv), device=q.device)
+    with f32_products():
+        for c in range(k.shape[1] // ck):
+            k_c = kh[:, :, c * ck : (c + 1) * ck].to(torch.float32)
+            v_c = vh[:, :, c * ck : (c + 1) * ck].to(torch.float32)
+            mask = _chunk_mask(q_positions, kv_valid, c, ck, causal, window)
+            s = (qh @ k_c.transpose(-1, -2)).view(B, Hkv, G, Sq, ck)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+            l = l * alpha + p.sum(dim=-1)
+            pv = (p.view(B, Hkv, G * Sq, ck) @ v_c).view(B, Hkv, G, Sq, Dv)
+            acc = acc * alpha[..., None] + pv
+            m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dv)
+    lse = torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)), -NEG_INF)
+    return out.to(q.dtype), lse
+
+
+class _ChunkedAttention(torch.autograd.Function):
+    """The reference's custom VJP (``_make_chunked_attention``): the
+    forward keeps out and lse only, and the backward recomputes each
+    chunk's probabilities from lse, so training never holds every chunk's
+    (Sq x ck) softmax."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_positions, kv_valid, causal, window, ck):
+        out, lse = _chunked_fwd(q, k, v, q_positions, kv_valid, causal, window, ck)
+        ctx.save_for_backward(q, k, v, q_positions, kv_valid, out, lse)
+        ctx.mask = (causal, window, ck)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, q_positions, kv_valid, out, lse = ctx.saved_tensors
+        causal, window, ck = ctx.mask
+        B, Sq, Hq, D = q.shape
+        Hkv, Dv = v.shape[2], v.shape[3]
+        G = Hq // Hkv
+        scale = D**-0.5
+        qh, kh, vh = _heads(q, k, v, scale)
+        do = dout.reshape(B, Sq, Hkv, G, Dv).permute(0, 2, 3, 1, 4).to(torch.float32)
+        o = out.reshape(B, Sq, Hkv, G, Dv).permute(0, 2, 3, 1, 4).to(torch.float32)
+        delta = (do * o).sum(dim=-1)  # (B, Hkv, G, Sq)
+        do = do.reshape(B, Hkv, G * Sq, Dv)
+        dq = torch.zeros_like(qh)
+        dks, dvs = [], []
+        with f32_products():
+            for c in range(k.shape[1] // ck):
+                k_c = kh[:, :, c * ck : (c + 1) * ck].to(torch.float32)
+                v_c = vh[:, :, c * ck : (c + 1) * ck].to(torch.float32)
+                mask = _chunk_mask(q_positions, kv_valid, c, ck, causal, window)
+                s = (qh @ k_c.transpose(-1, -2)).view(B, Hkv, G, Sq, ck)
+                s = torch.where(mask, s, NEG_INF)
+                p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+                dp = (do @ v_c.transpose(-1, -2)).view(B, Hkv, G, Sq, ck)
+                ds = (p * (dp - delta[..., None])).view(B, Hkv, G * Sq, ck)
+                p = p.view(B, Hkv, G * Sq, ck)
+                dvs.append(p.transpose(-1, -2) @ do)
+                # dL/dq = scale * ds @ k; dL/dk = ds^T @ (q * scale).
+                dq = dq + (ds @ k_c) * scale
+                dks.append(ds.transpose(-1, -2) @ qh)
+        dq = dq.view(B, Hkv, G, Sq, D).permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+        dk = torch.cat(dks, dim=2).permute(0, 2, 1, 3)
+        dv = torch.cat(dvs, dim=2).permute(0, 2, 1, 3)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None, None
+
+
+def chunked_attention(q, k, v, q_positions, kv_valid_len, causal: bool = True,
+                      window: int | None = None, kv_chunk: int = 1024) -> torch.Tensor:
+    """The reference's flash-semantic online-softmax attention, plain
+    PyTorch.  q: (B, Sq, Hq, D); k: (B, Skv, Hkv, D); v: (B, Skv, Hkv, Dv)
+    (Dv may differ from D); q_positions: (B, Sq) absolute positions;
+    kv_valid_len: an int or (B,) -- keys at index >= it are masked.
+    Returns (B, Sq, Hq, Dv) in q's dtype.  Keys run in chunks of
+    ``min(kv_chunk, Skv)``, the last padded to a whole chunk; softmax in
+    f32 with scale 1/sqrt(D); a row that sees no key gives zeros.
+    Differentiable in q, k and v (`_ChunkedAttention`)."""
+    B, Skv = q.shape[0], k.shape[1]
+    ck = min(kv_chunk, Skv)
+    pad = -(-Skv // ck) * ck - Skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    # A Python count becomes a tensor by a fill on the device: a copy from
+    # the host would wait for the queue each layer.
+    if isinstance(kv_valid_len, torch.Tensor):
+        kv_valid = kv_valid_len.to(q.device, torch.float32).expand(B)
+    else:
+        kv_valid = torch.full((B,), float(kv_valid_len), device=q.device)
+    q_positions = q_positions.to(q.device, torch.float32)
+    return _ChunkedAttention.apply(q, k, v, q_positions, kv_valid, causal, window, ck)
 
 
 # --------------------------------------------------------------------------
@@ -138,6 +285,106 @@ def attn_init_cache(cfg, batch: int, max_len: int, dtype, device) -> dict[str, t
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+# --------------------------------------------------------------------------
+# MLA -- multi-head latent attention (MiniCPM3 / DeepSeek style)
+# --------------------------------------------------------------------------
+
+
+def mla_init(gen: torch.Generator, cfg) -> dict[str, torch.Tensor]:
+    D, H = cfg.d_model, cfg.num_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    return {
+        "norm": torch.zeros(D, device=gen.device),
+        "q_down": dense_init(gen, D, qr),
+        "q_up": dense_init(gen, qr, H * (dn + dr)),
+        "kv_down": dense_init(gen, D, kvr + dr),
+        "k_up": dense_init(gen, kvr, H * dn),
+        "v_up": dense_init(gen, kvr, H * dv),
+        "wo": dense_init(gen, H * dv, D),
+    }
+
+
+def mla_apply(p, x, cfg, *, positions, cache=None, pos=0, window=None):
+    """Latent attention in the reference's absorption form: queries
+    ``[q_nope @ k_up | q_rope]`` against keys ``[c_kv | k_rope]`` of one kv
+    head, values the latent ``c_kv``, ``v_up`` applied after attention.
+    cache: {'c_kv' (B, Smax, kv_lora_rank), 'k_rope' (B, Smax,
+    qk_rope_dim)} or None, written at ``pos`` in place; attention
+    (`chunked_attention`) then runs over the whole cache, keys at ``pos +
+    S`` and later masked, as the reference's."""
+    B, S, _ = x.shape
+    H, kvr = cfg.num_heads, cfg.kv_lora_rank
+    dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
+    h = rms_norm(x, p["norm"])
+    cdt = h.dtype
+    q = ((h @ p["q_down"].to(cdt)) @ p["q_up"].to(cdt)).view(B, S, H, -1)
+    q_nope = q[..., :dn]
+    q_rope = rope(q[..., dn:], positions, cfg.rope_theta)
+    kv = h @ p["kv_down"].to(cdt)
+    c_kv = kv[..., :kvr]
+    k_rope = rope(kv[:, :, None, kvr:], positions, cfg.rope_theta)[:, :, 0]
+    kv_valid = S
+    if cache is not None:
+        cache["c_kv"][:, pos : pos + S] = c_kv
+        cache["k_rope"][:, pos : pos + S] = k_rope
+        c_kv, k_rope = cache["c_kv"], cache["k_rope"]
+        kv_valid = pos + S
+    q_abs = torch.einsum("bshd,rhd->bshr", q_nope, p["k_up"].to(cdt).view(kvr, H, dn))
+    q_cat = torch.cat([q_abs, q_rope], dim=-1)  # (B, S, H, kvr + dr)
+    k_cat = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]  # one kv head
+    o_lat = chunked_attention(
+        q_cat, k_cat.to(cdt), c_kv[:, :, None, :].to(cdt), positions, kv_valid,
+        True, window, kv_chunk=cfg.kv_chunk,
+    )  # (B, S, H, kvr)
+    out = torch.einsum("bshr,rhd->bshd", o_lat, p["v_up"].to(cdt).view(kvr, H, dv))
+    out = out.reshape(B, S, H * dv) @ p["wo"].to(cdt)
+    return out.to(x.dtype), cache
+
+
+def mla_init_cache(cfg, batch: int, max_len: int, dtype, device) -> dict[str, torch.Tensor]:
+    return {
+        "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype, device=device),
+    }
+
+
+# --------------------------------------------------------------------------
+# cross-attention (VLM / audio conditioning; the encoder is an input)
+# --------------------------------------------------------------------------
+
+
+def cross_init(gen: torch.Generator, cfg) -> dict[str, torch.Tensor]:
+    D, H, Dh, E = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.encoder_dim
+    return {
+        "norm": torch.zeros(D, device=gen.device),
+        "wq": dense_init(gen, D, H * Dh),
+        "wk": dense_init(gen, E, H * Dh),
+        "wv": dense_init(gen, E, H * Dh),
+        "wo": dense_init(gen, H * Dh, D),
+    }
+
+
+def cross_apply(p, x, enc, cfg):
+    """x: (B, S, D); enc: (B, T, E) encoder embeddings, cast to the compute
+    dtype.  Keys and values are recomputed from ``enc`` at every call, as
+    the reference does; attention is the flash kernel, non-causal, every
+    key visible."""
+    B, S, _ = x.shape
+    H, Dh = cfg.num_heads, cfg.head_dim
+    h = rms_norm(x, p["norm"])
+    cdt = h.dtype
+    e = enc.to(cdt)
+    q = (h @ p["wq"].to(cdt)).view(B, S, H, Dh)
+    k = (e @ p["wk"].to(cdt)).view(B, -1, H, Dh)
+    v = (e @ p["wv"].to(cdt)).view(B, -1, H, Dh)
+    out = flash_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=False,
+    ).transpose(1, 2)
+    out = out.reshape(B, S, H * Dh) @ p["wo"].to(cdt)
+    return out.to(x.dtype)
 
 
 # --------------------------------------------------------------------------

@@ -183,3 +183,143 @@ def test_route_choice(dtype):
     assert route(1, 1, 1, 64, 64) == ("mma" if bf16 else "simt")
     assert route(1, 8, 2, 16, 64) == ("mma" if bf16 else "simt")  # 4 x 16 rows
     assert route(1, 1, 1, 65, 64) == ("mma" if bf16 else "simt")
+
+
+# ------------------------------------------------------- chunked attention
+# `repro_torch.models.layers.chunked_attention` (plain PyTorch, MLA's
+# route) against the reference's `repro.models.layers.chunked_attention`,
+# forward and VJP: f32 within 2e-5, bf16 within 3e-2 (the bounds above).
+CHUNKED_CASES = [
+    # B, Sq, Hq, Hkv, Skv, D, Dv, causal, window, kv_valid, kv_chunk, q_offset
+    (2, 24, 4, 2, 24, 16, 16, True, None, None, 8, 0),  # chunks divide Skv
+    (2, 10, 4, 4, 37, 16, 16, False, None, None, 16, 0),  # padded last chunk
+    (1, 20, 2, 1, 40, 16, 16, True, 7, None, 16, 20),  # window, queries mid-cache
+    (2, 1, 4, 1, 30, 24, 16, True, None, (17, 25), 8, 16),  # decode, Dv != D
+    (2, 6, 4, 1, 33, 24, 16, False, None, (0, 5), 32, 0),  # a row sees no key
+    (1, 12, 4, 1, 12, 24, 16, True, None, None, 1024, 0),  # one chunk (MLA's shapes)
+]
+
+
+def _chunked_inputs(case, dtype):
+    B, Sq, Hq, Hkv, Skv, D, Dv = case[:7]
+    rng = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    arrays = [rng.standard_normal(s).astype(np.float32)
+              for s in ((B, Sq, Hq, D), (B, Skv, Hkv, D), (B, Skv, Hkv, Dv), (B, Sq, Hq, Dv))]
+    kv_valid = Skv if case[9] is None else np.array(case[9], np.int32)
+    positions = np.broadcast_to(case[11] + np.arange(Sq, dtype=np.int32), (B, Sq))
+    return arrays, kv_valid, positions
+
+
+@pytest.mark.parametrize("case", CHUNKED_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_attention_matches_reference(case, dtype):
+    import jax
+
+    from repro.models.layers import chunked_attention as ref_chunked
+    from repro_torch.models.layers import chunked_attention
+
+    causal, window, _, chunk = case[7:11]
+    (q, k, v, dout), kv_valid, positions = _chunked_inputs(case, dtype)
+
+    def ref(q, k, v):
+        return ref_chunked(q, k, v, jnp.asarray(positions), jnp.asarray(kv_valid),
+                           causal=causal, window=window, kv_chunk=chunk)
+
+    want, vjp = jax.vjp(ref, *(_jax(a, dtype) for a in (q, k, v)))
+    want_grads = vjp(_jax(dout, dtype))
+    leaves = [_torch(a, dtype).requires_grad_() for a in (q, k, v)]
+    got = chunked_attention(*leaves, torch.from_numpy(positions.copy()),
+                            torch.as_tensor(kv_valid), causal, window, chunk)
+    grads = torch.autograd.grad(got, leaves, _torch(dout, dtype))
+    tol = TOL[dtype]
+    assert got.dtype == getattr(torch, dtype) and got.shape == dout.shape
+    for g, w in zip((got, *grads), (want, *want_grads)):
+        assert g.dtype == getattr(torch, dtype)
+        np.testing.assert_allclose(g.detach().to(torch.float32).numpy(),
+                                   np.asarray(w, np.float32), rtol=tol, atol=tol)
+    if case[9] is not None and 0 in case[9]:  # no key visible: zeros
+        assert not got[0].any()
+
+
+# ---------------------------------------------------- MLA, cross-attention
+# The layers on the reduced configs against the reference's, same weights:
+# f32 within 2e-4 (`tests/test_torch_models.py`), bf16 within 3e-2.
+LAYER_TOL = {"float32": 2e-4, "bfloat16": 3e-2}
+
+
+def _layer_cfg(name, dtype):
+    from repro.configs import ARCHS
+
+    return ARCHS[name].reduced(compute_dtype=dtype)
+
+
+def _layer_x(cfg, B, S, seed):
+    x = np.random.default_rng(seed).standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    xr = jnp.asarray(x).astype(getattr(jnp, cfg.compute_dtype))
+    return xr, torch.from_numpy(np.array(xr.astype(jnp.float32))).to(
+        getattr(torch, cfg.compute_dtype))
+
+
+def _close_layer(got, want, dtype):
+    np.testing.assert_allclose(got.to(torch.float32).numpy(),
+                               np.asarray(jnp.asarray(want).astype(jnp.float32)),
+                               rtol=LAYER_TOL[dtype], atol=LAYER_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mla_apply_matches_reference(dtype):
+    """Without a cache over 20 positions; with a cache of 24: a prefill of
+    20, then one decode step at 20 (the cache's latents and the step's
+    output)."""
+    import jax
+
+    from repro.models import layers as RL
+    from repro_torch.models import layers as PL
+
+    cfg = _layer_cfg("minicpm3-4b", dtype)
+    p = RL.mla_init(jax.random.PRNGKey(0), cfg)
+    pp = {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
+    xr, xp = _layer_x(cfg, 2, 21, seed=1)
+    pos_r = jnp.broadcast_to(jnp.arange(20, dtype=jnp.int32), (2, 20))
+    pos_p = torch.arange(20)[None].expand(2, 20)
+    want, _ = RL.mla_apply(p, xr[:, :20], cfg, positions=pos_r)
+    got, cache = PL.mla_apply(pp, xp[:, :20], cfg, positions=pos_p)
+    assert cache is None
+    _close_layer(got, want, dtype)
+
+    cdt = getattr(jnp, dtype)
+    rc = RL.mla_init_cache(cfg, 2, 24, cdt)
+    pc = PL.mla_init_cache(cfg, 2, 24, getattr(torch, dtype), "cpu")
+    _, rc = RL.mla_apply(p, xr[:, :20], cfg, positions=pos_r, cache=rc, pos=0)
+    _, pc = PL.mla_apply(pp, xp[:, :20], cfg, positions=pos_p, cache=pc, pos=0)
+    want, rc = RL.mla_apply(p, xr[:, 20:], cfg, positions=jnp.full((2, 1), 20, jnp.int32),
+                            cache=rc, pos=20)
+    got, pc = PL.mla_apply(pp, xp[:, 20:], cfg, positions=torch.full((2, 1), 20),
+                           cache=pc, pos=20)
+    _close_layer(got, want, dtype)
+    assert set(pc) == {"c_kv", "k_rope"}
+    for name in pc:
+        assert pc[name].shape == rc[name].shape and pc[name].dtype == getattr(torch, dtype)
+        _close_layer(pc[name], rc[name], dtype)
+
+
+@pytest.mark.parametrize("name", ["llama-3.2-vision-11b", "musicgen-medium"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cross_apply_matches_reference(name, dtype):
+    """Over the encoder's 8 tokens, 20 queries and one (decode's shape)."""
+    import jax
+
+    from repro.models import layers as RL
+    from repro_torch.models import layers as PL
+
+    cfg = _layer_cfg(name, dtype)
+    p = RL.cross_init(jax.random.PRNGKey(2), cfg)
+    pp = {k: torch.from_numpy(np.array(v)) for k, v in p.items()}
+    enc = np.random.default_rng(3).standard_normal(
+        (2, cfg.encoder_len, cfg.encoder_dim)).astype(np.float32)
+    xr, xp = _layer_x(cfg, 2, 20, seed=4)
+    for S in (20, 1):
+        want = RL.cross_apply(p, xr[:, :S], jnp.asarray(enc), cfg)
+        got = PL.cross_apply(pp, xp[:, :S], torch.from_numpy(enc), cfg)
+        assert got.dtype == getattr(torch, dtype) and got.shape == (2, S, cfg.d_model)
+        _close_layer(got, want, dtype)

@@ -57,7 +57,8 @@ def test_new_modules_are_checked():
     arrival generators (pool, service, arrivals, results), and the
     experiment fabric (ensemble, cache, sweep, runner, mesh), and
     checkpointing, failure recovery and the RG-LRU family (checkpointer,
-    fault_tolerance, rglru, its config) are among the files the syntax
+    fault_tolerance, rglru, its config), and the remaining families (moe,
+    the MLA, MoE, vision and audio configs) are among the files the syntax
     check reads."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in (
@@ -79,6 +80,9 @@ def test_new_modules_are_checked():
         "experiments/runner.py", "launch/mesh.py",
         "checkpoint/__init__.py", "checkpoint/checkpointer.py", "runtime/fault_tolerance.py",
         "models/rglru.py", "configs/recurrentgemma_2b.py",
+        "models/moe.py", "configs/minicpm3_4b.py", "configs/dbrx_132b.py",
+        "configs/qwen3_moe_235b_a22b.py", "configs/llama_3_2_vision_11b.py",
+        "configs/musicgen_medium.py",
     ):
         assert f"src/repro_torch/{mod}" in names
 
@@ -98,7 +102,8 @@ def test_import_loads_no_jax():
         "repro_torch.experiments.results, repro_torch.experiments.cache, "
         "repro_torch.experiments.sweep, repro_torch.experiments.runner, "
         "repro_torch.launch.mesh, repro_torch.checkpoint, "
-        "repro_torch.runtime.fault_tolerance, repro_torch.models.rglru; "
+        "repro_torch.runtime.fault_tolerance, repro_torch.models.rglru, "
+        "repro_torch.models.moe; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -177,6 +182,12 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: build_model(get_arch("recurrentgemma-2b")),
         lambda: main(["--arch", "recurrentgemma-2b", "--requests", "1", "--prompt-len", "2",
                       "--max-new", "1"]),
+        *(lambda a=arch: build_model(get_arch(a))
+          for arch in ("minicpm3-4b", "qwen3-moe-235b-a22b", "llama-3.2-vision-11b")),
+        *(lambda a=arch: main(["--arch", a, "--requests", "1", "--prompt-len", "2",
+                               "--max-new", "1"])
+          for arch in ("minicpm3-4b", "dbrx-132b", "llama-3.2-vision-11b", "musicgen-medium")),
+        lambda: train.main(["--arch", "musicgen-medium", "--steps", "1"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

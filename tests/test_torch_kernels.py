@@ -629,6 +629,12 @@ def test_lp_terms_batch_members_bit_identical_to_single(cuda, M, P):
         (1, 1, 1, 80, 90, 128, False, 3, 60),
         # gemma3 training: batch 4 x 1024 tokens.
         (4, 4, 1, 1024, 1024, 256, True, None, 0),
+        # Cross-attention, non-causal over the encoder's keys: llama-3.2-
+        # vision's prefill and decode (1601 image tokens), musicgen's (64).
+        (4, 32, 32, 600, 1601, 128, False, None, 0),
+        (4, 32, 32, 1, 1601, 128, False, None, 0),
+        (4, 24, 24, 600, 64, 64, False, None, 0),
+        (4, 24, 24, 1, 64, 64, False, None, 0),
     ],
 )
 def test_flash_attention_kernel_matches_plain(cuda, dtype, B, Hq, Hkv, Sq, Skv, D, causal, window, off):

@@ -210,7 +210,7 @@ def test_serve_matches_reference_wave_loop():
     cfg = REF_ARCHS[NAME].reduced(vocab_size=512, compute_dtype="float32")
     ref_params = ref_build_model(cfg).init(jax.random.PRNGKey(0))
     kw = dict(slots=2, requests=3, prompt_len=20, max_new=4, seed=7)
-    want, want_logits = _reference_waves(cfg, ref_params, **kw)
+    want, want_logits, _ = _reference_waves(cfg, ref_params, **kw)
     port_cfg = ModelConfig(**dataclasses.asdict(cfg))
     res = serve(port_cfg, params_from_reference(ref_params, port_cfg, "cpu"), device="cpu", **kw)
     assert res.produced == want
