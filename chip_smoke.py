@@ -119,7 +119,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    on the card (attention's backward included), the new error feedback
    within one quantization step of its row's scale (plus f32 rounding,
    ``EF_BOUND``), `quantize` launched steps x leaves = 708 times,
-   `dequantize` twice that and `flash_attention` steps x 26 layers = 78;
+   `dequantize` twice that and `flash_attention` steps x 50 = 150 (26
+   layers, and the 24 of its 4 whole units again in their recompute: each
+   unit of ``layer_unit`` runs under `torch.utils.checkpoint` in training);
    ms per step, tokens/s, the compressed exchange's share and peak
    memory; one more step profiled; a reduced f32 gemma3 trained 3
    compressed steps on the card and on the host with the same host-drawn
@@ -224,8 +226,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    resumed at step 3 from the save of step 2, each leaf's f64 checksum of
    the restored state equal to the saved state's; every one of the 320
    gradient leaves finite and nonzero, the error feedback within
-   ``EF_BOUND``; `mlstm_chunk` launched once per mLSTM layer of each
-   forward (4 x 42 = 168: its backward recomputes through the twin),
+   ``EF_BOUND``; `mlstm_chunk` launched twice per mLSTM layer of each
+   step, in the forward and in its unit's recompute (4 x 84 = 336: its
+   backward recomputes through the twin),
    `quantize` steps x leaves, `dequantize` twice that; ms per step, the
    snapshot, write and restore seconds, the checkpoint's bytes and peak
    memory.  Then `mlstm_chunk` at the training shape (16, 512, 512), C =
@@ -281,11 +284,26 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    32, 600, 1601, 128) and decode (4, 32, 32, 1, 1601, 128) and musicgen's
    (4, 24, 24, 600, 64, 64) and (4, 24, 24, 1, 64, 64), in f32 and bf16;
    both reduced models card against host, served and trained;
-18. the ``kernels`` JSON line (the calendar kernels' and `port_stats`'
+18. the launch tooling (`repro_torch.launch`): `dryrun.run_cell` for
+   gemma3-1b's ``train_4k``, ``prefill_32k`` and ``decode_32k`` on the
+   card's local mesh and on one pod (16 x 16), all on ``meta`` (no card
+   memory), a row each (per-device operations and bytes, arguments,
+   temporaries, the roofline terms); then the smoke's gemma3 decode step
+   (4 slots, context 617, at position 616) and one training step (4 x
+   1024, f32 masters, AdamW, the per-unit recompute) each counted on meta
+   and on the card under `op_cost.OpCounter`: operations, bytes and the
+   kernels' costs equal; each timed on the card with CUDA events and set
+   against its roofline bound (`perf.measured_roofline`: ``roofline_frac``
+   beside the card's name and power limit); the counter's peak estimate
+   beside `torch.cuda.max_memory_allocated`; the training step timed and
+   its peak read with and without the per-unit recompute, in turns;
+   `flash_attention` launched 26 a decode step, 50 a recomputing training
+   step and 26 without;
+19. the ``kernels`` JSON line (the calendar kernels' and `port_stats`'
    launches summed over phases 3, 8, 10, 11 and 12, `lp_terms_batch`'s over
    phases 3, 11 and 12, `mlstm_chunk`'s over phases 7 and 13, `quantize`'s
-   and `dequantize`'s over 8 and 13, `flash_attention`'s over 6 and
-   14-17), then ``{"ok": true, "device": ...}`` last.
+   and `dequantize`'s over 8 and 13, `flash_attention`'s over 6, 14-17
+   and 18), then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero as well without a CUDA device.
@@ -1329,6 +1347,14 @@ def read_counts():
     return {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
 
 
+def remat_layers(cfg, kinds) -> int:
+    """Layers of ``kinds`` in the whole units of ``cfg.layer_unit``: a
+    training step runs each twice, in the forward and again under its
+    unit's checkpoint in the backward."""
+    whole = cfg.num_layers // len(cfg.layer_unit) * len(cfg.layer_unit)
+    return sum(kind in kinds for kind in cfg.layer_kinds[:whole])
+
+
 def phase_end_to_end(torch, label, instances):
     """Main path through the user entry points, with launch counts."""
     from repro_torch.experiments import build_buckets, solve_ensemble_lp
@@ -2227,8 +2253,11 @@ def phase_training(torch):
     check(seen["leaves"] == {leaves} and seen["steps"] == steps,
           f"train: inspected {seen} for {leaves} leaves and {steps} steps")
     check(all(np.isfinite(res.losses)), f"train: losses {res.losses}")
+    # Attention runs in each layer's forward and again in each whole unit's
+    # recompute (24 of the 26 layers).
+    attn_layers = cfg.num_layers + remat_layers(cfg, ("attn", "local"))
     want = dict(quantize=steps * leaves, dequantize=2 * steps * leaves,
-                flash_attention=steps * cfg.num_layers)
+                flash_attention=steps * attn_layers)
     # The planner: one ensemble build (one port count) and its calendar.
     planner = dict(port_stats=1, pair_resolve=batch_circuit.ROUNDS["kernel"])
     check(planner["pair_resolve"] > 0, "train: the planner ran no calendar round")
@@ -2246,7 +2275,8 @@ def phase_training(torch):
             f"{1e3 * ex:.3f} ms ({100 * ex / dt:.1f} % of the step)")
     log(f"training {cfg.name}: launches {json.dumps(counts)} (quantize = {steps} steps x "
         f"{leaves} leaves, dequantize twice that, flash_attention = {steps} x "
-        f"{cfg.num_layers} layers; the planner's port_stats 1 and pair_resolve = its "
+        f"{attn_layers} (26 layers and the 24 of the whole units recomputed); the "
+        f"planner's port_stats 1 and pair_resolve = its "
         f"{planner['pair_resolve']} calendar rounds); peak device memory {peak / 1e9:.3f} GB "
         f"(torch.cuda.max_memory_allocated, the checks' temporaries left out); every "
         f"leaf's gradient finite and nonzero; "
@@ -3595,14 +3625,19 @@ def phase_training_xlstm(torch):
         T.Checkpointer = Checksummed
         t0 = time.perf_counter()
         try:
-            res = T.train(cfg, compress_grads=True, params=params, inspect=inspect,
+            # The trainer holds the only reference to the initial masters, so
+            # that the restored state replaces them after the restart (one
+            # kept here would hold 4.5 GB of pre-restart masters through the
+            # rest of the run).
+            initial = [params]
+            del params
+            res = T.train(cfg, compress_grads=True, params=initial.pop(), inspect=inspect,
                           checkpoint_dir=root, log_every=1, **kw)
         finally:
             T.Checkpointer = C.Checkpointer
         wall = time.perf_counter() - t0
         counts = read_counts()
         peak = max(seen["peaks"] + [torch.cuda.max_memory_allocated()])
-        del params
         on_disk = sum(f.stat().st_size for f in Path(root).rglob("*") if f.is_file())
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3621,7 +3656,10 @@ def phase_training_xlstm(torch):
     check(seen["leaves"] == {leaves} and seen["steps"] == ran,
           f"xlstm train: inspected {seen} for {leaves} leaves and {ran} steps")
     check(all(np.isfinite(res.losses)), f"xlstm train: losses {res.losses}")
-    want = dict(mlstm_chunk=ran * n_mlstm, quantize=ran * leaves, dequantize=2 * ran * leaves)
+    # Each mLSTM layer runs in the forward and again in its unit's recompute.
+    mlstm_runs = n_mlstm + remat_layers(cfg, ("mlstm",))
+    want = dict(mlstm_chunk=ran * mlstm_runs, quantize=ran * leaves,
+                dequantize=2 * ran * leaves)
     for name, n in want.items():
         check(counts[name] == n, f"xlstm train: {name} launched {counts[name]} times, "
               f"expected {n}")
@@ -3642,7 +3680,8 @@ def phase_training_xlstm(torch):
         f"(writer thread), restore {res.restore_s[0]:.4f} s; {len(sums['save'][0][1])} leaves' "
         f"f64 checksums equal after the restore")
     log(f"training {cfg.name}: launches {json.dumps(counts)} (mlstm_chunk = {ran} forward "
-        f"passes x {n_mlstm} mLSTM layers, quantize = {ran} x {leaves} leaves, dequantize "
+        f"passes x {mlstm_runs} (the {n_mlstm} mLSTM layers' forwards and their units' "
+        f"recomputes), quantize = {ran} x {leaves} leaves, dequantize "
         f"twice that); peak device memory {peak / 1e9:.3f} GB (torch.cuda."
         f"max_memory_allocated, the checks' temporaries left out); every leaf's gradient "
         f"finite and nonzero; error feedback at most {seen['worst_ef']:.7f} quantization "
@@ -4069,6 +4108,185 @@ def phase_cross(torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the launch tooling (dry-run rows, counted steps against the card)
+# ---------------------------------------------------------------------------
+
+LAUNCH_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+LAUNCH_TRAIN = (4, 1024)  # batch x tokens of phase 8's step
+LAUNCH_RUNS = 3  # timed training steps of each variant (after one warm-up)
+
+
+def count_step(torch, step, args):
+    """``step(*args)``'s `OpCost` (its result dropped)."""
+    from repro_torch.launch.op_cost import OpCounter
+
+    with OpCounter() as counter:
+        step(*args)
+    return counter.cost
+
+
+def check_same_count(label, meta, card):
+    """The step counted on meta and on the card: the same operations and
+    bytes, the same kernel shares."""
+    if (meta.flops, meta.bytes) != (card.flops, card.bytes):
+        diff = {k: (meta.by_op.get(k), card.by_op.get(k))
+                for k in set(meta.by_op) | set(card.by_op)
+                if meta.by_op.get(k) != card.by_op.get(k)}
+        check(False, f"{label}: meta counts {meta.flops} flops {meta.bytes} bytes, the card "
+              f"{card.flops} flops {card.bytes} bytes; by op {diff}")
+    check(dict(meta.kernels) == dict(card.kernels),
+          f"{label}: kernel costs differ: meta {dict(meta.kernels)}, card {dict(card.kernels)}")
+
+
+def tensor_bytes(torch, *trees) -> int:
+    from torch.utils._pytree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(trees)
+               if isinstance(t, torch.Tensor))
+
+
+def phase_launch(torch):
+    """Phase 18: `run_cell` for gemma3-1b's three shapes on the local mesh
+    and on one pod (meta, no card memory), a row each; then the smoke's
+    gemma3 decode step (4 slots, context 617, the last position) and one
+    training step (4 x 1024, f32 masters, AdamW) each counted on meta and
+    on the card under `OpCounter` (operations, bytes and kernel costs
+    gated equal), timed on the card with CUDA events, and set against the
+    roofline (`perf.measured_roofline`); the counter's peak estimate beside
+    `torch.cuda.max_memory_allocated`; the training step timed with and
+    without the per-unit recompute.  Returns the kernel launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.perf import measured_roofline
+    from repro_torch.launch.steps import default_optimizer, make_serve_step, make_train_step
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.model import build_model
+
+    cfg = get_arch("gemma3-1b")
+    t0 = time.perf_counter()
+    for mesh in ("local", "single"):
+        for shape in LAUNCH_SHAPES:
+            r = dryrun.run_cell(cfg.name, shape, mesh)
+            m, c, rf = r["memory"], r["cost"], r["roofline"]
+            check(c["device_flops"] > 0 and m["argument_bytes"] > 0 and r["model_flops"] > 0,
+                  f"dry-run {shape} {mesh}: {r}")
+            log(f"dry-run {cfg.name} {shape} {r['mesh']} ({r['chips']} chips, partition "
+                f"{r['partition']}, {r['param_mode']}, {r['num_microbatches']} microbatches): "
+                f"per device {c['device_flops']:.6g} flops, {c['device_bytes_accessed']:.6g} "
+                f"bytes, arguments {m['argument_bytes'] / 1e9:.3f} GB, temporaries "
+                f"{m['temp_bytes'] / 1e9:.3f} GB, peak estimate "
+                f"{m['peak_estimate_bytes'] / 1e9:.3f} GB (fits {m['hbm_bytes'] / 1e9:g} GB: "
+                f"{m['fits_hbm']}); roofline compute {rf['compute_s']:.6g} s, memory "
+                f"{rf['memory_s']:.6g} s -> {rf['dominant']}; MODEL_FLOPS / counted "
+                f"{r['useful_flops_ratio']:.4f}; {c['aten_ops']} ATen ops in {r['trace_s']} s")
+    log(f"launch: dry-run rows {time.perf_counter() - t0:.2f} s")
+
+    reset_counts()
+    slots, ctx = SERVE["slots"], SERVE["prompt_len"] + SERVE["max_new"] + 1
+
+    def decode_on(dev):
+        model = build_model(cfg, dev)
+        params = (model.abstract_params() if dev == "meta"
+                  else model.init(torch.Generator(device=dev).manual_seed(0)))
+        tokens = torch.zeros((slots, 1), dtype=torch.int32, device=dev)
+        return make_serve_step(model), (params, model.init_cache(slots, ctx),
+                                        {"tokens": tokens}, ctx - 1)
+
+    with torch.no_grad():
+        step, args = decode_on("meta")
+        meta = count_step(torch, step, args)
+        estimate = tensor_bytes(torch, args[:3]) + meta.peak_bytes
+        step, args = decode_on("cuda")
+        card = count_step(torch, step, args)
+        check_same_count("launch decode", meta, card)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(torch, lambda: step(*args), runs=20, warmup=3)
+    decode_peak = torch.cuda.max_memory_allocated()
+    roof = measured_roofline(card, ms / 1e3)
+    log(f"launch decode {cfg.name} ({slots} slots, context {ctx}, position {ctx - 1}): "
+        f"{card.flops:.6g} flops, {card.bytes:.6g} bytes on meta and on the card, kernels "
+        f"{json.dumps(card.summary()['kernels'])}; {ms:.4f} ms (CUDA events, median of 20), "
+        f"bound {1e3 * roof['bound_s']:.6f} ms ({roof['dominant']}), roofline_frac "
+        f"{roof['roofline_frac']:.5f} on {CARD}; peak estimate {estimate / 1e9:.3f} GB, "
+        f"max_memory_allocated {decode_peak / 1e9:.3f} GB")
+    del step, args
+    torch.cuda.empty_cache()
+
+    batch_size, seq = LAUNCH_TRAIN
+
+    def train_on(dev):
+        model = build_model(cfg, dev)
+        params = (model.abstract_params(masters=True) if dev == "meta"
+                  else model.init(torch.Generator(device=dev).manual_seed(0), masters=True))
+        opt = default_optimizer()
+        toks = torch.randint(0, cfg.vocab_size, (batch_size, seq + 1),
+                             generator=torch.Generator().manual_seed(1)).to(dev)
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        return make_train_step(model, opt), (params, opt.init(params), batch)
+
+    step, args = train_on("meta")
+    meta = count_step(torch, step, args)
+    estimate = tensor_bytes(torch, args) + meta.peak_bytes
+    step, args = train_on("cuda")
+    card = count_step(torch, step, args)
+    check_same_count("launch train", meta, card)
+
+    remat = model_mod.checkpoint
+
+    def units_whole(fn, *a, **kw):  # the loss chunks keep their checkpoint
+        return fn(*a) if fn.__name__ == "_layers" else remat(fn, *a, **kw)
+
+    def timed_step():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(*args)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end), torch.cuda.max_memory_allocated()
+
+    times = {"unit recompute": [], "no unit recompute": []}
+    peaks = {}
+    step(*args)  # warm-up
+    try:
+        for _ in range(LAUNCH_RUNS):
+            for variant, fn in (("unit recompute", remat), ("no unit recompute", units_whole)):
+                model_mod.checkpoint = fn
+                t, peaks[variant] = timed_step()
+                times[variant].append(t)
+    finally:
+        model_mod.checkpoint = remat
+    counts = read_counts()
+    ms = statistics.median(times["unit recompute"])
+    roof = measured_roofline(card, ms / 1e3)
+    attn = cfg.num_layers + remat_layers(cfg, ("attn", "local"))
+    want = ((1 + 20 + 3) * cfg.num_layers + (2 + LAUNCH_RUNS) * attn
+            + LAUNCH_RUNS * cfg.num_layers)
+    check(counts["flash_attention"] == want,
+          f"launch: flash_attention launched {counts['flash_attention']} times, expected "
+          f"{want} (24 decode steps x 26, {2 + LAUNCH_RUNS} recomputing training steps x "
+          f"{attn}, {LAUNCH_RUNS} without the unit recompute x 26)")
+    others = {k: v for k, v in counts.items() if k != "flash_attention"}
+    check(not any(others.values()), f"launch: other kernels launched {others}")
+    log(f"launch train {cfg.name} ({batch_size} x {seq} tokens, f32 masters, AdamW): "
+        f"{card.flops:.6g} flops, {card.bytes:.6g} bytes on meta and on the card "
+        f"({card.matmul_flops:.6g} in products), kernels "
+        f"{json.dumps(card.summary()['kernels'])}; {ms:.3f} ms a step (CUDA events, median "
+        f"of {LAUNCH_RUNS}), bound {1e3 * roof['bound_s']:.4f} ms ({roof['dominant']}), "
+        f"roofline_frac {roof['roofline_frac']:.5f} on {CARD}; peak estimate "
+        f"{estimate / 1e9:.3f} GB, max_memory_allocated {peaks['unit recompute'] / 1e9:.3f} GB")
+    log(f"launch train recompute: " + "; ".join(
+        f"{v} {statistics.median(t):.3f} ms a step ({', '.join(f'{x:.3f}' for x in t)}), "
+        f"peak {peaks[v] / 1e9:.3f} GB" for v, t in times.items())
+        + f" on {CARD}; flash_attention launches {json.dumps(counts)}")
+    del step, args
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4237,13 +4455,17 @@ def main() -> int:
     cross_counts = phase_cross(torch)
     lap("phase 17 (cross-attention: llama-3.2-vision-11b, musicgen-medium)")
 
-    # Phase 18: the kernels line (each kernel's launches on its main paths:
+    # Phase 18: the launch tooling.
+    launch_counts = phase_launch(torch)
+    lap("phase 18 (launch tooling)")
+
+    # Phase 19: the kernels line (each kernel's launches on its main paths:
     # the calendar kernels' and port_stats' grow by the planner's run in
     # phase 8, by ours_ls's runs in phase 10, by the streams of phase 11 and
     # by the sweeps of phase 12, lp_terms_batch's by the streams' and the
     # sweeps' LPs, mlstm_chunk's, quantize's and dequantize's by phase 13's
-    # training and flash_attention's by the serves of phases 14-17), then
-    # the result.
+    # training and flash_attention's by the serves of phases 14-17 and the
+    # counted steps of phase 18), then the result.
     for name in ("pair_resolve", "port_stats"):
         counts[name] += (train_counts[name] + sum(c[name] for c in refine_counts.values())
                          + stream_counts[name] + fabric_counts[name])
@@ -4254,7 +4476,7 @@ def main() -> int:
     counts["lp_terms"] = single_counts["lp_terms"] + fabric_counts["lp_terms"]
     counts["event_resolve"] = flow_counts["event_resolve"]
     counts["flash_attention"] = sum(c["flash_attention"] for c in (
-        serve_counts, rglru_counts, mla_counts, moe_counts, cross_counts))
+        serve_counts, rglru_counts, mla_counts, moe_counts, cross_counts, launch_counts))
     counts["mlstm_chunk"] = xlstm_counts["mlstm_chunk"] + xtrain_counts["mlstm_chunk"]
     counts["quantize"] = train_counts["quantize"] + xtrain_counts["quantize"]
     counts["dequantize"] = train_counts["dequantize"] + xtrain_counts["dequantize"]

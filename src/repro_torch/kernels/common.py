@@ -10,10 +10,18 @@ go in as ``c_void_p``, and every C entry point returns
 
 Nothing here runs at import: the host has no ``nvcc``, and the wrappers
 only reach `launch` for CUDA tensors.
+
+`kernel_work` is how a wrapper reports its own work to an active
+operation count (`repro_torch.launch.op_cost.OpCounter`): the kernel's
+``cost(...)`` is added by name, and the ATen operations of whichever route
+runs (the twin on the host, the launch's buffers on the card, the meta
+route's empty outputs) are hidden from the count, so that a step counts the
+same on every device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,7 +34,7 @@ import torch
 
 __all__ = [
     "launch", "library", "library_path", "refuse_grad", "sm_count", "stream_of",
-    "BUILD_DIR",
+    "kernel_work", "COST_SINKS", "BUILD_DIR",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -66,6 +74,26 @@ _SIGNATURES = {
 }
 
 _LIB: ctypes.CDLL | None = None
+
+#: Active operation counts, innermost last (`repro_torch.launch.op_cost`
+#: pushes and pops them).
+COST_SINKS: list = []
+
+
+@contextlib.contextmanager
+def kernel_work(name: str, cost, *args):
+    """Around one call of kernel ``name``'s route: with a count active, add
+    ``cost(*args)`` (a ``(flops, bytes)`` pair) to the innermost count and
+    hide the route's ATen operations from it."""
+    if not COST_SINKS:
+        yield
+        return
+    sink = COST_SINKS[-1]
+    sink.add_kernel(name, *cost(*args))
+    with sink.paused():
+        yield
+
+
 _SM_COUNTS: dict[int, int] = {}
 
 

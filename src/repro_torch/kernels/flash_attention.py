@@ -13,9 +13,9 @@ in f32 or bf16 with D in {16, 32, 64, 128, 256}; the kernels take strides,
 so views such as ``x.transpose(1, 2)`` of a (B, S, H, D) tensor need no
 copy, and the output takes q's layout.  CPU tensors take
 `flash_attention_plain`, a copy of the reference's oracle
-(``kernels/flash_attention/ref.py``).  The two differ only on a row that no
-key is visible to: the kernels write zeros there (as the Pallas kernel
-does), the oracle the mean of v.
+(``kernels/flash_attention/ref.py``), its result copied into q's layout.
+The two differ only on a row that no key is visible to: the kernels write
+zeros there (as the Pallas kernel does), the oracle the mean of v.
 
 `plan` picks the route of a call from its shape and dtype alone, over the
 R = (Hq // Hkv) * Sq rows of one (batch, kv head):
@@ -35,6 +35,11 @@ R = (Hq // Hkv) * Sq rows of one (batch, kv head):
 `LAUNCHES` counts one per call that reaches a kernel, whatever number of
 CUDA kernels the route launches (the split route launches two).
 
+``meta`` tensors (the launch tooling's dry-run) take the meta route: the
+kernel's checks, then an empty output of q's shape and dtype, nothing
+computed.  `cost` gives the call's operations and bytes; under an active
+operation count every route adds it (`kernels.common.kernel_work`).
+
 Where autograd records (training), the call goes through a
 `torch.autograd.Function` whose backward recomputes through the twin, as
 the reference's custom VJP does; the kernel never returns a result
@@ -46,13 +51,14 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-from repro_torch.kernels.common import launch, refuse_grad, sm_count, stream_of
+from repro_torch.kernels.common import kernel_work, launch, refuse_grad, sm_count, stream_of
 
 __all__ = [
-    "flash_attention", "flash_attention_plain", "live_band", "plan", "Plan",
-    "LAUNCHES", "SPLIT_KEYS", "SPLIT_ROWS",
+    "flash_attention", "flash_attention_plain", "live_band", "live_pairs", "cost", "plan",
+    "Plan", "LAUNCHES", "SPLIT_KEYS", "SPLIT_ROWS",
 ]
 
 #: Calls that reached a kernel in this process (CPU calls are not counted).
@@ -89,6 +95,30 @@ def live_band(Sq: int, Skv: int, causal: bool, window: int | None,
     lo = 0 if window is None else max(0, q_offset - window + 1)
     hi = min(Skv, q_offset + Sq) if causal else Skv
     return (lo, hi) if hi > lo else (0, 0)
+
+
+def live_pairs(Sq: int, Skv: int, causal: bool, window: int | None, q_offset: int) -> int:
+    """The (query, key) pairs with the key visible to the query, over one
+    (batch, query head)."""
+    hi = np.full(Sq, Skv)
+    pos = q_offset + np.arange(Sq)
+    if causal:
+        hi = np.minimum(hi, pos + 1)
+    lo = np.zeros(Sq, dtype=np.int64) if window is None else np.maximum(0, pos - window + 1)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
+         window: int | None = None, q_offset: int = 0) -> tuple[float, float]:
+    """(operations, bytes) of one call: 2 products x 2 flops x D per live
+    pair and query head; q read and the output written once, each key and
+    value row of the live band (`live_band`) read once per kv head."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    lo, hi = live_band(Sq, Skv, causal, window, q_offset)
+    flops = 4 * D * live_pairs(Sq, Skv, causal, window, q_offset) * B * Hq
+    nbytes = q.element_size() * (2 * B * Hq * Sq * D + 2 * B * Hkv * (hi - lo) * D)
+    return float(flops), float(nbytes)
 
 
 def plan(dtype: torch.dtype, B: int, Hq: int, Hkv: int, Sq: int, Skv: int,
@@ -206,13 +236,24 @@ def flash_attention(
 
 
 def _forward(q, k, v, causal, window, q_offset) -> torch.Tensor:
-    """The twin for CPU tensors, the kernel for CUDA tensors (no graph)."""
+    """The twin for CPU tensors, the kernel for CUDA tensors, an empty
+    output for meta tensors (no graph); its `cost` added to an active
+    count."""
+    with kernel_work("flash_attention", cost, q, k, v, causal, window, q_offset):
+        return _route(q, k, v, causal, window, q_offset)
+
+
+def _route(q, k, v, causal, window, q_offset) -> torch.Tensor:
     global LAUNCHES
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, window, q_offset)
-    if q.device.type != "cuda":
+        # In q's layout, as the kernel writes it: the layers after see the
+        # same strides (and issue the same copies) on every device.
+        out = flash_attention_plain(q, k, v, causal, window, q_offset)
+        return torch.empty_like(q).copy_(out)
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    refuse_grad("flash_attention", q, k, v)
+    if q.device.type == "cuda":
+        refuse_grad("flash_attention", q, k, v)
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash_attention: float32 or bfloat16, got {q.dtype}")
     B, Hq, Sq, D = q.shape
@@ -222,7 +263,7 @@ def _forward(q, k, v, causal, window, q_offset) -> torch.Tensor:
     if window is not None and window < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
     out = torch.empty_like(q)  # q's layout (strides) where q is dense
-    if B * Hq * Sq == 0:
+    if B * Hq * Sq == 0 or q.device.type == "meta":
         return out
     ops = [_operand(t, name) for t, name in ((q, "q"), (k, "k"), (v, "v"), (out, "out"))]
     p = plan(q.dtype, B, Hq, Hkv, Sq, Skv, causal, window, q_offset, sm_count(q.device))

@@ -46,6 +46,11 @@ shape no route takes raises.  `LAUNCHES` counts one per call that reaches
 a kernel, whatever number of CUDA kernels its route launches (the mma
 route launches two).
 
+``meta`` tensors (the launch tooling's dry-run) take the meta route: the
+kernel's checks, then empty outputs of the right shapes and dtypes,
+nothing computed.  `cost` gives the call's operations and bytes; under an
+active operation count every route adds it (`kernels.common.kernel_work`).
+
 Where autograd records (training xLSTM), the call goes through a
 `torch.autograd.Function` whose backward recomputes through the twin, as
 `flash_attention`'s does; elsewhere (serving) the wrapper launches the
@@ -59,10 +64,11 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import launch, stream_of
+from repro_torch.kernels.common import kernel_work, launch, stream_of
 
 __all__ = [
-    "mlstm_chunk", "mlstm_chunk_plain", "block_smem", "plan", "scratch_bytes", "LAUNCHES",
+    "mlstm_chunk", "mlstm_chunk_plain", "block_smem", "cost", "plan", "scratch_bytes",
+    "LAUNCHES",
 ]
 
 #: Calls that reached a kernel in this process (CPU calls are not counted).
@@ -79,6 +85,22 @@ def plan(dtype: torch.dtype, BH: int, S: int, Dh: int, C: int) -> str:
     if dtype == torch.bfloat16 and Dh % 64 == 0:
         return "mma"
     return "simt"
+
+
+def cost(q, k, v, log_f, log_i, state, C: int) -> tuple[float, float]:
+    """(operations, bytes) of one call.  Operations per chunk and (b, h): 2
+    Dh flops per live pair t >= s for q k^T and again for the scores
+    against v, 2 C Dh^2 each for inter and the state update.  Bytes: q, k,
+    v read and h written once, the two f32 gates read, the f32 state
+    written (and read when carried)."""
+    BH, S, Dh = q.shape
+    chunks = BH * (S // C)
+    pairs = C * (C + 1) // 2
+    flops = chunks * (2 * pairs * Dh + 2 * (pairs * Dh + 2 * C * Dh * Dh))
+    state_bytes = 4 * BH * (Dh * Dh + Dh)
+    nbytes = (4 * BH * S * Dh * q.element_size() + 2 * 4 * BH * S
+              + state_bytes * (1 if state is None else 2))
+    return float(flops), float(nbytes)
 
 
 def scratch_bytes(BH: int, S: int, Dh: int, C: int) -> int:
@@ -220,16 +242,26 @@ def mlstm_chunk(q, k, v, log_f, log_i, state=None, chunk: int = 256):
 
 
 def _forward(q, k, v, log_f, log_i, state, C):
-    """The twin for CPU tensors, the kernel for CUDA tensors (no graph)."""
+    """The twin for CPU tensors, the kernel for CUDA tensors, empty outputs
+    for meta tensors (no graph); its `cost` added to an active count."""
+    with kernel_work("mlstm_chunk", cost, q, k, v, log_f, log_i, state, C):
+        return _route(q, k, v, log_f, log_i, state, C)
+
+
+def _route(q, k, v, log_f, log_i, state, C):
     global LAUNCHES
     if q.device.type == "cpu":
         return mlstm_chunk_plain(q, k, v, log_f, log_i, state, C)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"mlstm_chunk: unsupported device {q.device}")
     BH, S, Dh = q.shape
     route = plan(q.dtype, BH, S, Dh, C)
     if route == "mma" and S // C > 65535:
         raise ValueError(f"mlstm_chunk: {S // C} chunks, more than the grid's 65535")
+    if q.device.type == "meta":
+        return torch.empty_like(q), (
+            torch.empty((BH, Dh, Dh), dtype=torch.float32, device=q.device),
+            torch.empty((BH, Dh), dtype=torch.float32, device=q.device))
     need, limit = block_smem(q.device.index, route, Dh, C)
     if need > limit:
         raise ValueError(

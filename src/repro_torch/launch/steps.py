@@ -1,12 +1,12 @@
-"""The train steps (port of `repro.launch.steps.make_train_step` and of
-the reference trainer's ``--compress-grads`` step).
+"""The step functions (port of `repro.launch.steps`, and of the reference
+trainer's ``--compress-grads`` step), run by the trainer, the server's
+callers and the dry-run (`repro_torch.launch.dryrun`).
 
   train_step(params, opt_state, batch) -> (params, opt_state, metrics)
   compressed_step(params, opt_state, errors, batch, noise, inspect=None)
       -> (params, opt_state, errors, metrics)
-
-The reference's prefill and serve steps are `Model.prefill` and
-`Model.decode_step` in the port (`repro_torch.launch.serve` calls them).
+  prefill_step(params, batch)           -> (last_logits, cache)
+  serve_step(params, cache, batch, pos) -> (logits, cache)   [one new token]
 """
 
 from __future__ import annotations
@@ -21,7 +21,10 @@ from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamW, constant_schedule
 from repro_torch.runtime.compression import Noise, compressed_allreduce, init_error_feedback
 
-__all__ = ["make_train_step", "make_compressed_step", "loss_and_grad", "default_optimizer"]
+__all__ = [
+    "make_train_step", "make_compressed_step", "make_prefill_step", "make_serve_step",
+    "loss_and_grad", "zero_accumulators", "accumulate_microbatch", "default_optimizer",
+]
 
 
 def default_optimizer() -> AdamW:
@@ -56,20 +59,32 @@ def make_train_step(model: Model, optimizer: AdamW | None = None, num_microbatch
             loss, grads = loss_and_grad(model, params, batch)
         else:
             rows = len(batch["tokens"]) // n
-            loss = torch.zeros((), dtype=torch.float32, device=model.device)
-            grads = tree.map_leaves(
-                lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params
-            )
+            loss, grads = zero_accumulators(model, params)
             for i in range(n):
                 micro = {k: v[i * rows : (i + 1) * rows] for k, v in batch.items()}
-                l, g = loss_and_grad(model, params, micro)
-                loss = loss + l / n
-                for acc, gi in zip(tree.leaves(grads), tree.leaves(g)):
-                    acc.add_(gi / n)
+                loss = accumulate_microbatch(model, params, micro, loss, grads, n)
         params, opt_state, stats = opt.update(params, grads, opt_state)
         return params, opt_state, {"loss": loss, **stats}
 
     return train_step
+
+
+def zero_accumulators(model: Model, params: Any) -> tuple[torch.Tensor, Any]:
+    """The f32 zero loss and gradient tree the microbatches add into."""
+    loss = torch.zeros((), dtype=torch.float32, device=model.device)
+    grads = tree.map_leaves(
+        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+    return loss, grads
+
+
+def accumulate_microbatch(model: Model, params: Any, micro: dict, loss: torch.Tensor,
+                          grads: Any, n: int) -> torch.Tensor:
+    """One microbatch of ``n``: ``g / n`` added into ``grads`` in place;
+    returns ``loss + l / n``."""
+    l, g = loss_and_grad(model, params, micro)
+    for acc, gi in zip(tree.leaves(grads), tree.leaves(g)):
+        acc.add_(gi / n)
+    return loss + l / n
 
 
 def _sync(device: torch.device) -> None:
@@ -110,3 +125,17 @@ def make_compressed_step(model: Model, optimizer: AdamW | None = None):
             "loss": loss, **stats, "exchange_s": t1 - t0, "inspect_s": inspect_s}
 
     return compressed_step
+
+
+def make_prefill_step(model: Model):
+    def prefill_step(params, batch):
+        return model.prefill(params, batch)
+
+    return prefill_step
+
+
+def make_serve_step(model: Model):
+    def serve_step(params, cache, batch, pos):
+        return model.decode_step(params, cache, batch, pos)
+
+    return serve_step

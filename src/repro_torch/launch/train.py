@@ -119,8 +119,10 @@ def train(
     """Train ``cfg`` for ``steps`` steps of ``batch`` x ``seq`` tokens on
     ``device``, as the reference's ``main`` trains.
 
-    ``params`` are the initial f32 masters (updated in place), else drawn
-    from a generator seeded 0 on the device; a restart with no checkpoint
+    ``params`` are the initial f32 masters (updated in place; the trainer
+    keeps no reference to them beyond the state it trains, so a restored
+    state frees them where the caller keeps none), else drawn from a
+    generator seeded 0 on the device; a restart with no checkpoint
     to restore draws them so again, as the reference's ``make_state``
     does.  ``inspect(step, grads, errors, new_errors)``, if given, sees
     each compressed step's raw gradients and the error feedback before and
@@ -152,9 +154,11 @@ def train(
         max_failures=1,  # one-shot: the "node" is replaced after restart
     )
     straggler = StragglerMitigator()
-    out = TrainResult(params, None, [], [], [], [], None)
+    out = TrainResult(None, None, [], [], [], [], None)
     error_fb = None
-    initial = params
+    # The first state takes the initial masters and nothing else here keeps
+    # them: after a restart the restored state replaces them on the card.
+    initial, params = params, None
 
     def make_state():
         nonlocal initial
@@ -256,12 +260,13 @@ def main(argv=None, *, inspect: Callable | None = None) -> TrainResult:
 
     cfg = config_for(args.arch, args.full_config, args.d_model, args.layers)
     model = build_model(cfg, args.device)
-    params = model.init(torch.Generator(device=model.device).manual_seed(0), masters=True)
-    print(f"training {cfg.name} ({param_count(params) / 1e6:.1f}M params) on 1 "
+    # Handed on, not kept: `train` holds the only reference (see its doc).
+    initial = [model.init(torch.Generator(device=model.device).manual_seed(0), masters=True)]
+    print(f"training {cfg.name} ({param_count(initial[0]) / 1e6:.1f}M params) on 1 "
           f"device ({model.device}), {args.steps} steps")
     cplan = None
     if args.plan_collectives:
-        buckets = buckets_from_params(params, bucket_bytes=16 << 20)
+        buckets = buckets_from_params(initial[0], bucket_bytes=16 << 20)
         cplan = plan(buckets, num_pods=2, device=model.device)
         print(
             f"[planner] {len(buckets)} gradient buckets -> "
@@ -273,7 +278,7 @@ def main(argv=None, *, inspect: Callable | None = None) -> TrainResult:
     res = train(
         cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr,
         microbatches=args.microbatches, compress_grads=args.compress_grads,
-        log_every=args.log_every, device=model.device, params=params, inspect=inspect,
+        log_every=args.log_every, device=model.device, params=initial.pop(), inspect=inspect,
         checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
         inject_failure=args.inject_failure,
     )

@@ -29,7 +29,19 @@ the reference casts them, and autograd differentiates through the casts,
 through the flash and mLSTM kernels' backwards (each recomputes through
 its plain twin, as the reference's jnp routes do), through
 `layers.chunked_attention`'s backward, the experts' router and gates, the
-sLSTM loop and the RG-LRU scan.
+sLSTM loop and the RG-LRU scan.  Where autograd records, each unit of
+``cfg.layer_unit`` (the reference's scanned units: layers ``r * u`` to
+``r * u + u - 1`` for ``r < num_layers // u``) runs under
+`torch.utils.checkpoint` and is recomputed in the backward, as the
+reference's ``jax.checkpoint(unit_body)``: autograd holds the residual
+stream at each unit boundary and one unit's internals at a time; the
+layers after the last whole unit run unwrapped, as the reference's loop
+after its scan.
+
+On the ``meta`` device (`build_model(cfg, "meta")`) the model runs with
+no values: `abstract_params` gives its parameters' shapes and dtypes, and
+every step runs as on the card, each kernel's meta route giving outputs
+of the right shape (the launch tooling's dry-run, `repro_torch.launch`).
 """
 
 from __future__ import annotations
@@ -37,6 +49,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
@@ -47,7 +60,7 @@ from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
 from repro_torch.models import xlstm as X
 
-__all__ = ["Model", "build_model", "param_count", "param_bytes"]
+__all__ = ["Model", "build_model", "on_meta", "param_count", "param_bytes"]
 
 # Layer kinds the port runs (every kind of the reference's); xLSTM's have
 # no FFN.
@@ -55,6 +68,20 @@ _PORTED_KINDS = ("attn", "local", "mla", "cross", "rglru", "mlstm", "slstm")
 _NO_FFN_KINDS = ("mlstm", "slstm")
 # Matrices read in f32, so held in f32 for serving too.
 _F32_MATRICES = ("r",) + R.F32_WEIGHTS
+
+
+class on_meta(TorchDispatchMode):
+    """Inside, every operation that makes or copies a tensor onto a device
+    makes it on ``meta``, and every draw takes no generator: code written
+    for a real device runs with shapes and dtypes only."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = torch.device("meta")
+        if kwargs.get("generator") is not None:
+            kwargs["generator"] = None
+        return func(*args, **kwargs)
 
 
 class Model:
@@ -70,6 +97,13 @@ class Model:
         self._embed_scale = float(torch.tensor(cfg.d_model**0.5, dtype=self.dtype))
 
     # ---------------------------------------------------------------- init
+    def abstract_params(self, masters: bool = False) -> dict[str, Any]:
+        """The parameters `init` and `cast` give, as ``meta`` tensors of the
+        same shapes and dtypes, with no draw: `init` runs with every
+        factory and copy sent to the meta device (`on_meta`)."""
+        with on_meta():
+            return Model(self.cfg, torch.device("cpu")).init(torch.Generator(), masters)
+
     def init(self, generator: torch.Generator, masters: bool = False) -> dict[str, Any]:
         """Random parameters from ``generator``, which must be on the
         model's device: the reference's distributions (matrices N(0,
@@ -169,7 +203,9 @@ class Model:
         return self._head(params, x), cache
 
     def _hidden(self, params, batch, cache=None, pos: int = 0) -> torch.Tensor:
-        """The residual stream after the last layer, (B, S, D)."""
+        """The residual stream after the last layer, (B, S, D).  Where
+        autograd records (a parameter requires grad) and there is no cache,
+        each whole unit of ``cfg.layer_unit`` runs under `checkpoint`."""
         cfg = self.cfg
         tokens = torch.as_tensor(batch["tokens"], device=self.device).long()
         B, S = tokens.shape[:2]
@@ -178,8 +214,23 @@ class Model:
             enc = torch.as_tensor(enc, device=self.device)
         x = self._embed(params, tokens)
         positions = (pos + torch.arange(S, device=self.device))[None, :].expand(B, S)
+        u = len(tuple(cfg.layer_unit))
+        remat = cache is None and torch.is_grad_enabled() and any(
+            t.requires_grad for t in tree.leaves(params["layers"]))
+        rest = cfg.num_layers // u * u if remat else 0
+        for lo in range(0, rest, u):
+            x = checkpoint(self._layers, params["layers"][lo : lo + u], x, positions, enc, lo,
+                           use_reentrant=False)
+        return self._layers(params["layers"][rest:], x, positions, enc, rest, cache, pos)
+
+    def _layers(self, layers: list, x: torch.Tensor, positions: torch.Tensor, enc,
+                first: int, cache=None, pos: int = 0) -> torch.Tensor:
+        """Layers ``first``, ``first + 1``, ... (their parameters ``layers``)
+        over the residual stream ``x``."""
+        cfg = self.cfg
         ffn = M.moe_apply if cfg.num_experts else L.ffn_apply
-        for i, (kind, p) in enumerate(zip(cfg.layer_kinds, params["layers"])):
+        for i, p in enumerate(layers, start=first):
+            kind = cfg.layer_kinds[i]
             state = None if cache is None else cache[i]
             if kind == "mlstm":
                 delta, state = X.mlstm_apply(p["mix"], x, cfg, state=state, chunk=cfg.mlstm_chunk)
@@ -255,10 +306,12 @@ class Model:
         return [one(kind) for kind in self.cfg.layer_kinds]
 
     def prefill(self, params, batch):
+        """(the last position's logits, the cache of the whole prompt): the
+        head runs on the last position only."""
         tokens = batch["tokens"]
         cache = self.init_cache(len(tokens), len(tokens[0]))
-        logits, cache = self.forward(params, batch, cache=cache, pos=0)
-        return logits[:, -1], cache
+        x = self._hidden(params, batch, cache, 0)
+        return self._head(params, x[:, -1:])[:, 0], cache
 
     def decode_step(self, params, cache, batch, pos: int):
         """batch['tokens']: (B, 1) ((B, 1, C) with codebooks); pos: the new
@@ -268,8 +321,9 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
-    """The port's model for ``cfg`` on ``device`` (the card by default)."""
-    device = resolve_device(device)
+    """The port's model for ``cfg`` on ``device`` (the card by default;
+    ``"meta"`` for a model that runs with no values)."""
+    device = resolve_device(device, meta=True)
     unknown = sorted(set(cfg.layer_kinds) - set(_PORTED_KINDS))
     if unknown:
         raise ValueError(f"{cfg.name}: unknown layer kinds {unknown}")

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 from typing import Any, Callable
 
-__all__ = ["leaves", "unflatten", "map_leaves"]
+__all__ = ["leaves", "paths", "unflatten", "map_leaves"]
 
 
 def leaves(tree: Any) -> list:
@@ -15,6 +15,16 @@ def leaves(tree: Any) -> list:
     if isinstance(tree, list):
         return [x for item in tree for x in leaves(item)]
     return [tree]
+
+
+def paths(tree: Any, prefix: str = "") -> list[str]:
+    """Each leaf's path in `leaves` order: dict keys and list indices
+    joined by ``/`` (``layers/3/attn/wq``)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in paths(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, list):
+        return [x for i, item in enumerate(tree) for x in paths(item, f"{prefix}{i}/")]
+    return [prefix[:-1]]
 
 
 def unflatten(like: Any, values: list) -> Any:

@@ -58,8 +58,9 @@ def test_new_modules_are_checked():
     experiment fabric (ensemble, cache, sweep, runner, mesh), and
     checkpointing, failure recovery and the RG-LRU family (checkpointer,
     fault_tolerance, rglru, its config), and the remaining families (moe,
-    the MLA, MoE, vision and audio configs) are among the files the syntax
-    check reads."""
+    the MLA, MoE, vision and audio configs), and the launch tooling
+    (sharding, specs, op_cost, roofline, dryrun, perf, report) are among
+    the files the syntax check reads."""
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     for mod in (
         "core/lp.py", "core/ordering.py", "core/lower_bounds.py", "core/theory.py",
@@ -83,6 +84,8 @@ def test_new_modules_are_checked():
         "models/moe.py", "configs/minicpm3_4b.py", "configs/dbrx_132b.py",
         "configs/qwen3_moe_235b_a22b.py", "configs/llama_3_2_vision_11b.py",
         "configs/musicgen_medium.py",
+        "launch/sharding.py", "launch/specs.py", "launch/op_cost.py", "launch/roofline.py",
+        "launch/dryrun.py", "launch/perf.py", "launch/report.py",
     ):
         assert f"src/repro_torch/{mod}" in names
 
@@ -103,7 +106,9 @@ def test_import_loads_no_jax():
         "repro_torch.experiments.sweep, repro_torch.experiments.runner, "
         "repro_torch.launch.mesh, repro_torch.checkpoint, "
         "repro_torch.runtime.fault_tolerance, repro_torch.models.rglru, "
-        "repro_torch.models.moe; "
+        "repro_torch.models.moe, repro_torch.launch.sharding, repro_torch.launch.specs, "
+        "repro_torch.launch.op_cost, repro_torch.launch.roofline, repro_torch.launch.dryrun, "
+        "repro_torch.launch.perf, repro_torch.launch.report; "
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]; "
         "print(bad); sys.exit(1 if bad else 0)"
     )
@@ -129,6 +134,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.experiments import run_distributed, run_shard, stream, sweep
     from repro_torch.pipeline import build_ensemble_batch, get_pipeline
     from repro_torch.pipeline.ensemble_batch import build_slot_pool_batch
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.mesh import make_local_mesh, place
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_arch("gemma3-1b").reduced()
@@ -188,6 +195,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                                "--max-new", "1"])
           for arch in ("minicpm3-4b", "dbrx-132b", "llama-3.2-vision-11b", "musicgen-medium")),
         lambda: train.main(["--arch", "musicgen-medium", "--steps", "1"]),
+        lambda: make_local_mesh(),
+        lambda: place([1.0]),
+        lambda: run_cell("gemma3-1b", "decode_32k", "local"),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -150,7 +150,7 @@ def test_build_pipeline_configures_lp_stage():
 
 
 def test_unported_run_options_are_refused(solved):
-    """The reference's ``mesh`` sharding is not ported (ROADMAP item 9);
+    """The reference's ``mesh`` sharding is not ported (ROADMAP item 10b);
     ``refine`` and ``stage_cache`` are (PR 26) and run."""
     ref, sol = solved["zero"]
     inst, s = from_reference(ref, "cpu"), from_reference(sol, "cpu")

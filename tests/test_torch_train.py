@@ -33,7 +33,12 @@ Tolerances (f32 unless stated):
     autograd through their plain twins (the backward is that recompute),
     on the host and, for `mlstm_chunk`, on the card (marked ``cuda``);
   * a run recovered from an injected failure: bit-identical to the same
-    steps replayed by hand (the checkpoint round trip is exact).
+    steps replayed by hand (the checkpoint round trip is exact);
+  * each unit of layers under `torch.utils.checkpoint` (the reference's
+    ``jax.checkpoint(unit_body)``): loss and every gradient bit-identical
+    to the same step without it, and the bytes autograd saves bounded by
+    the residual stream at each unit boundary plus one unit's internals
+    plus the loss chunk's.
 """
 
 import contextlib
@@ -62,6 +67,7 @@ from repro_torch.kernels import mlstm_chunk as mc
 from repro_torch.kernels import quant as qt
 from repro_torch.launch import train as train_mod
 from repro_torch.launch.steps import loss_and_grad, make_compressed_step, make_train_step
+from repro_torch.models import model as model_mod
 from repro_torch.models.model import build_model
 from repro_torch.optim.adamw import AdamW, constant_schedule, cosine_schedule
 from test_torch_models import near_tied_rows
@@ -448,6 +454,105 @@ def test_mlstm_chunk_gradients_on_the_card(dtype, carried):
     torch.testing.assert_close(out[1], out_p[1], rtol=2e-4, atol=2e-4)
     err = (out[0].float() - out_p[0].float()).abs()
     assert bool((err <= 2**-7 * out_p[0].float().abs() + 2e-4).all())
+
+
+# ------------------------------------------------- per-unit checkpointing
+REMAT = ("gemma3-1b", "minicpm3-4b", "llama-3.2-vision-11b", "qwen3-moe-235b-a22b",
+         "xlstm-1.3b", "recurrentgemma-2b")
+
+
+def _remat_case(arch, units=2, seed=0):
+    """A reduced config of ``units`` whole units of its layer kinds and one
+    layer more (unwrapped, as the reference's loop after its scan, where
+    the unit has more than one layer),
+    f32 masters drawn on the host, and a batch of 2 x 40."""
+    base = get_arch(arch)
+    u = len(base.layer_unit)
+    cfg = base.reduced(num_layers=units * u + 1)
+    if arch == "xlstm-1.3b":
+        cfg = dataclasses.replace(cfg, mlstm_chunk=12)
+    model = build_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(seed), masters=True)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg, seed=seed + 1).items()}
+    return cfg, model, params, batch
+
+
+def _direct(fn, *args, **kwargs):
+    return fn(*args)
+
+
+def _loss_and_grads(model, params, batch):
+    """The loss in two chunks of 20 positions and its gradient tree."""
+    leaves = tree.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss = model.loss(params, batch, 20)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.parametrize("arch", REMAT)
+def test_unit_checkpoint_keeps_loss_and_grads_bit_identical(arch, monkeypatch):
+    """Each whole unit runs under `checkpoint` (counted: the units and the
+    loss chunks), and the loss and every gradient leaf are bit-identical
+    to the same step with `checkpoint` calling the function directly: the
+    recompute (through the kernels' autograd Functions, the experts'
+    sort, the sLSTM loop, the RG-LRU scan) gives the same bits."""
+    cfg, model, params, batch = _remat_case(arch)
+    calls = []
+
+    def counted(fn, *args, **kwargs):
+        calls.append(fn.__name__)
+        return torch.utils.checkpoint.checkpoint(fn, *args, **kwargs)
+
+    monkeypatch.setattr(model_mod, "checkpoint", counted)
+    loss, grads = _loss_and_grads(model, params, batch)
+    units = cfg.num_layers // len(cfg.layer_unit)
+    assert calls.count("_layers") == units and calls.count("_xent") == 2
+    monkeypatch.setattr(model_mod, "checkpoint", _direct)
+    want, want_grads = _loss_and_grads(model, params, batch)
+    assert torch.equal(loss, want)
+    for g, w in zip(grads, want_grads):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def _saved_bytes(fn) -> int:
+    """Bytes of the distinct storages autograd saves while ``fn`` runs."""
+    seen = {}
+
+    def pack(t):
+        seen[id(t.untyped_storage())] = t.untyped_storage().nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        fn()
+    return sum(seen.values())
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "xlstm-1.3b"])
+def test_unit_checkpoint_bounds_saved_bytes(arch, monkeypatch):
+    """Four whole units and one layer more, the loss in two chunks of 20.
+    The bound, from the shapes: the residual stream (B, S, D) in the
+    compute dtype at each of the 4 unit boundaries, plus one unit's
+    internals (what its u layers save when run alone without the
+    checkpoint), plus the loss chunk's logits (B, 20, V) in the compute
+    dtype and in f32.  Without the checkpoint the same loss saves every
+    layer's internals, past the bound."""
+    cfg, model, params, batch = _remat_case(arch, units=4)
+    leaves = tree.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    B, S = batch["tokens"].shape[:2]
+    u = len(cfg.layer_unit)
+    item = torch.empty((), dtype=getattr(torch, cfg.compute_dtype)).element_size()
+    x = torch.zeros((B, S, cfg.d_model), dtype=getattr(torch, cfg.compute_dtype))
+    positions = torch.arange(S)[None, :].expand(B, S)
+    with torch.enable_grad():
+        unit = _saved_bytes(lambda: model._layers(params["layers"][:u], x, positions, None, 0))
+        bound = 4 * B * S * cfg.d_model * item + unit + B * 20 * cfg.vocab_size * (item + 4)
+        saved = _saved_bytes(lambda: model.loss(params, batch, 20))
+        monkeypatch.setattr(model_mod, "checkpoint", _direct)
+        whole = _saved_bytes(lambda: model.loss(params, batch, 20))
+    assert saved <= bound < whole, (saved, bound, whole)
 
 
 # ------------------------------------------------------------------ trainer
