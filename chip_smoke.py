@@ -186,8 +186,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    ``paper_default_instance(0)`` with the exact LP equal to
    ``get_pipeline("ours").run_batch``; (e) the long-horizon cell
    (``fb_full``'s ``service``: 192 coflows, 48 ports, K = 4, pool 32,
-   900 iterations, 300 warm), cut to its first 64 coflows in release
-   order in 8 batches, logged: epochs, weighted CCT, the margin against
+   900 iterations, 300 warm), cut to its first 24 coflows in release
+   order in 3 batches, logged: epochs, weighted CCT, the margin against
    the subgradient objective, warm re-solve p50 / p95 / p99, the
    warm-epoch wall, the mean host seconds a stage (`EpochRecord.stage_s`:
    slot writes, LP, order, allocation, calendar), and one profiled warm
@@ -299,11 +299,27 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    its peak read with and without the per-unit recompute, in turns;
    `flash_attention` launched 26 a decode step, 50 a recomputing training
    step and 26 without;
-19. the ``kernels`` JSON line (the calendar kernels' and `port_stats`'
-   launches summed over phases 3, 8, 10, 11 and 12, `lp_terms_batch`'s over
-   phases 3, 11 and 12, `mlstm_chunk`'s over phases 7 and 13, `quantize`'s
-   and `dequantize`'s over 8 and 13, `flash_attention`'s over 6, 14-17
-   and 18), then ``{"ok": true, "device": ...}`` last.
+19. the ensemble sharded over a mesh's ``data`` axis on meshes of
+   ``cuda:0`` listed 4 and 3 times (`repro_torch.launch.mesh`): phase 3's
+   32 paper-default instances with its LP solutions through
+   ``get_pipeline("ours", circuit_engine=e).run_batch(..., mesh=)``, ``e``
+   the pair and the flow calendar, bit for bit against phase 3's
+   unsharded run (orders, cores, establish and complete times, CCTs), and
+   8 instances at 48 ports on 4 shards, where a shard's `pair_resolve`
+   takes another tiling than the whole's, against their unsharded run;
+   ``solve_ensemble_lp(..., mesh=)`` at 300 iterations bit for bit against
+   the unsharded solve; launches counted (`pair_resolve` and `event_resolve`
+   once a round, `lp_terms_batch` once a step of each shard); two gloo
+   ranks on the card through ``compressed_allreduce(axis_name="data")`` on
+   gemma3-1b's full-width embedding gradient (262144 x 1152), each from
+   its own seed, equal to the int8 wrapping sum rank 0 computes from both
+   payloads, with the exchange's seconds; a checkpoint restored onto the
+   3-shard mesh with per-leaf f64 checksums equal to the saved state's;
+20. the ``kernels`` JSON line (the calendar kernels' and `port_stats`'
+   launches summed over phases 3, 8, 10, 11, 12 and 19, `lp_terms_batch`'s
+   over phases 3, 11, 12 and 19, `mlstm_chunk`'s over phases 7 and 13,
+   `quantize`'s and `dequantize`'s over 8, 13 and 19, `flash_attention`'s
+   over 6, 14-17 and 18), then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero as well without a CUDA device.
@@ -2766,7 +2782,9 @@ SERVICE_LONG_RUN = dict(pool_size=32, n_batches=24, lp_iters=900)
 # The long cell's first coflows in release order, with its pool, ports,
 # cores and iterations, and 8 coflows a batch: whole, the cell takes more
 # than the smoke's share (PERF.md, section 4; item 4's benchmark runs it).
-SERVICE_LONG_PREFIX = 64
+# 24 (its pool of 32 never fills) keeps the whole smoke near 870 s on a
+# fast host and under 1100 s on a slow one (PERF.md, section 6).
+SERVICE_LONG_PREFIX = 24
 # (b) and (c) run the CI cell's first coflows in release order, 8 a batch,
 # with its pool, ports, cores and iterations: more than the pool, so
 # drain epochs run too (each stream of the whole cell costs 14-40 s of
@@ -4287,6 +4305,257 @@ def phase_launch(torch):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the ensemble sharded over a mesh's data axis, the int8 exchange
+# across ranks, restore onto a mesh
+# ---------------------------------------------------------------------------
+
+MESH_LP_ITERS = 300
+# gemma3-1b's embedding gradient (vocab x d_model): the exchange's leaf.
+EXCHANGE_SHAPE = (262144, 1152)
+EXCHANGE_SEEDS = (11, 12)
+
+
+def card_mesh(torch, n):
+    """``cuda:0`` listed ``n`` times on ``data``: ``n`` shards on one card."""
+    from repro_torch.launch.mesh import Mesh
+
+    return Mesh(("data", "model"), (n, 1), (torch.device("cuda", 0),) * n)
+
+
+def exchange_payload(torch, comp, seed):
+    """Rank ``seed``'s gradient (f32 N(0, 1e-6) from its seed on the card),
+    zero error feedback and its noise generator, as `compressed_allreduce`
+    takes them."""
+    dev = torch.device("cuda", 0)
+    g = torch.randn(EXCHANGE_SHAPE, generator=torch.Generator(dev).manual_seed(seed),
+                    device=dev) * 1e-3
+    return [g], comp.init_error_feedback([g]), torch.Generator(dev).manual_seed(seed + 1000)
+
+
+def exchange_rank(rank, world, rdv, results):
+    """One gloo rank of phase 19 (a spawned process on the one card):
+    `compressed_allreduce(axis_name="data")` on its own gradient, timed;
+    rank 0 then computes both ranks' payloads itself and holds the result
+    to their int8 wrapping sum, dequantized with its own scales."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import quant
+    from repro_torch.runtime import compression as comp
+
+    out = {"rank": rank}
+    try:
+        torch.distributed.init_process_group(
+            "gloo", init_method=f"file://{rdv}", world_size=world, rank=rank)
+        grads, errors, noise = exchange_payload(torch, comp, EXCHANGE_SEEDS[rank])
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        t0 = time.perf_counter()
+        restored, _ = comp.compressed_allreduce(grads, errors, noise, axis_name="data")
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+        out["quantize"], out["dequantize"] = quant.LAUNCHES_QUANTIZE, quant.LAUNCHES_DEQUANTIZE
+        if rank == 0:
+            payloads = [comp.compress_tree(*exchange_payload(torch, comp, s))[0][0]
+                        for s in EXCHANGE_SEEDS[:world]]
+            total = sum(p[0].to(torch.int16) for p in payloads)
+            summed = (torch.remainder(total + 128, 256) - 128).to(torch.int8)
+            want = comp.decompress_tree([(summed, payloads[0][1], payloads[0][2])], grads)
+            out["wrapped"] = int((total.abs() > 127).sum())
+            out["equal"] = bool(torch.equal(restored[0], want[0]))
+            out["max_abs_err"] = float((restored[0] - want[0]).abs().max())
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+        out["ok"] = True
+    except Exception:  # the rank's boundary: the parent reads it and fails the phase
+        import traceback
+
+        out["error"] = traceback.format_exc()
+    results.put(out)
+
+
+def phase_exchange(torch, world=2):
+    """Two gloo ranks on the card through `compressed_allreduce`."""
+    import multiprocessing
+    import tempfile
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_exchange_")
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=exchange_rank, args=(r, world, f"{work}/rdv", results))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    got = {}
+    try:
+        for _ in range(world):
+            r = results.get(timeout=300)
+            got[r["rank"]] = r
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+    wall = time.perf_counter() - t0
+    for r in range(world):
+        check(got.get(r, {}).get("ok", False), f"exchange rank {r}: {got.get(r)}")
+        check(procs[r].exitcode == 0, f"exchange rank {r} exited {procs[r].exitcode}")
+    head = got[0]
+    check(head["equal"], f"exchange: rank 0's result differs from the int8 wrapping sum of "
+          f"both payloads (max abs err {head['max_abs_err']})")
+    check(head["wrapped"] > 0, "exchange: no int8 sum wrapped: the wrap went unchecked")
+    counts = {k: sum(got[r][k] for r in range(world)) for k in ("quantize", "dequantize")}
+    check(counts == {"quantize": world, "dequantize": 2 * world},
+          f"exchange: launches {counts}, expected one quantize and two dequantize a rank")
+    log(f"mesh exchange: {world} gloo ranks on one card, compressed_allreduce(axis_name="
+        f"'data') of a {EXCHANGE_SHAPE[0]} x {EXCHANGE_SHAPE[1]} f32 gradient each "
+        f"({EXCHANGE_SHAPE[0] * EXCHANGE_SHAPE[1] / 1e6:.1f} M int8 codes on the wire, "
+        f"staged through pinned host memory): equal to the int8 wrapping sum of both "
+        f"payloads bit for bit, {head['wrapped']} codes wrapped; exchange seconds "
+        + ", ".join(f"rank {r} {got[r]['seconds']:.4f}" for r in range(world))
+        + f" (spawn to join {wall:.2f} s) on {CARD}")
+    return counts
+
+
+def phase_mesh(torch, paper, sols, ours_results):
+    """Phase 19: the ensemble on meshes of ``cuda:0`` listed 4 and 3 times.
+
+    Post-LP: phase 3's 32 paper-default instances with its LP solutions
+    through ``get_pipeline("ours", circuit_engine=e).run_batch(...,
+    mesh=)`` for the pair and the flow calendar, bit for bit against phase
+    3's unsharded run (orders, cores, establish and complete times, CCTs);
+    then 8 instances at 48 ports on 4 shards, where a shard's calendar
+    takes another `pair_resolve` tiling than the whole, against their
+    unsharded run.  LP: `solve_ensemble_lp` at 300 iterations on each mesh
+    bit for bit against the unsharded solve.
+    Then the int8 exchange over two gloo ranks (`phase_exchange`) and a
+    checkpoint restored onto the 3-shard mesh, per-leaf f64 checksums
+    against the saved state's.  Returns the launches."""
+    import tempfile
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.experiments import solve_ensemble_lp
+    from repro_torch.kernels import pair_resolve as pr
+    from repro_torch.launch.mesh import Sharded, data_sharding, gather
+    from repro_torch.pipeline import batch_circuit, get_pipeline
+    from repro_torch.traffic.instances import sample_instance
+
+    meshes = {n: card_mesh(torch, n) for n in (4, 3)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wide = [sample_instance(num_ports=48, num_coflows=8, seed=s) for s in range(8)]
+    wide_sols = solve_ensemble_lp(wide, iters=100)
+    wide_single = get_pipeline("ours").run_batch(wide, wide_sols)
+    torch.cuda.synchronize()
+
+    reset_counts()
+    t_phase = time.perf_counter()
+    runs = 0
+    for engine in ("kernel", "jax"):
+        for n, mesh in meshes.items():
+            pipe = get_pipeline("ours", circuit_engine=engine)
+            t0 = time.perf_counter()
+            res = pipe.run_batch(paper, sols, validate=True, mesh=mesh)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            for b, (g, c) in enumerate(zip(res, ours_results)):
+                check_same_schedule(f"mesh {n} shards {engine} instance {b}", g, c)
+            runs += 1
+            log(f"mesh post-LP: {engine} calendar on {n} shards of cuda:0, 32 paper-default "
+                f"instances bit-identical to phase 3's unsharded run (orders, cores, "
+                f"establish/complete, CCTs); run_batch {dt:.4f} s on {CARD}")
+    # At 48 ports a shard's pair calendar takes another tiling than the
+    # whole's (its G is a quarter): the same times all the same.
+    res = get_pipeline("ours").run_batch(wide, wide_sols, validate=True, mesh=meshes[4])
+    for b, (g, c) in enumerate(zip(res, wide_single)):
+        check_same_schedule(f"mesh 4 shards N=48 instance {b}", g, c)
+    runs += 1
+    members = sum(len(set(r.allocation.core.tolist())) for r in wide_single)
+    whole_g = batch_circuit._round_up(members, batch_circuit._G_QUANTUM)
+    shard_g = batch_circuit._round_up(whole_g, 4) // 4
+    whole_p, shard_p = pr.plan(whole_g, 48, sms), pr.plan(shard_g, 48, sms)
+    check(whole_p != shard_p, f"mesh routes N=48: shards take the whole's tiling {whole_p}")
+    log(f"mesh routes N=48: 8 instances on 4 shards bit-identical to their unsharded run; "
+        f"pair_resolve whole G={whole_g} {whole_p} vs shard G={shard_g} {shard_p}; "
+        f"event_resolve's route reads each member's flows, which the shards share")
+
+    t0 = time.perf_counter()
+    single = solve_ensemble_lp(paper, iters=MESH_LP_ITERS)
+    torch.cuda.synchronize()
+    lp_s = {"unsharded": time.perf_counter() - t0}
+    for n, mesh in meshes.items():
+        t0 = time.perf_counter()
+        sharded = solve_ensemble_lp(paper, iters=MESH_LP_ITERS, mesh=mesh)
+        lp_s[f"{n} shards"] = time.perf_counter() - t0
+        same = all(a.objective == b.objective and np.array_equal(a.completion, b.completion)
+                   for a, b in zip(single, sharded))
+        gap = max(abs(b.objective - a.objective) / abs(a.objective)
+                  for a, b in zip(single, sharded))
+        differ = sum(a.objective != b.objective for a, b in zip(single, sharded))
+        check(same, f"mesh LP {n} shards: {differ} of {len(single)} objectives differ from "
+              f"the unsharded solve, largest relative gap {gap:.6e}")
+        log(f"mesh LP: solve_ensemble_lp({MESH_LP_ITERS} iterations) on {n} shards "
+            f"bit-identical to the unsharded solve (objectives, completions) on {CARD}")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    rounds = dict(batch_circuit.ROUNDS)
+    wall = time.perf_counter() - t_phase
+    expect_lp = (1 + sum(meshes)) * (MESH_LP_ITERS + 2)
+    check(counts["pair_resolve"] == rounds["kernel"] > 0,
+          f"mesh: pair_resolve launched {counts['pair_resolve']}, rounds {rounds['kernel']}")
+    check(counts["event_resolve"] == rounds["jax"] > 0,
+          f"mesh: event_resolve launched {counts['event_resolve']}, rounds {rounds['jax']}")
+    check(counts["lp_terms_batch"] == expect_lp,
+          f"mesh: lp_terms_batch launched {counts['lp_terms_batch']}, expected {expect_lp} "
+          f"(unsharded + one a shard, {MESH_LP_ITERS} steps + 2 each)")
+    check(counts["port_stats"] > 0, "mesh: port_stats never launched")
+    log(f"mesh: {runs} sharded run_batch calls and {len(meshes)} sharded LP solves in "
+        f"{wall:.2f} s; LP seconds {json.dumps({k: round(v, 4) for k, v in lp_s.items()})}; "
+        f"launches {json.dumps(counts)} (pair_resolve == kernel rounds, event_resolve == "
+        f"flow rounds, lp_terms_batch == {expect_lp}) on {CARD}")
+
+    counts.update({k: counts[k] + v for k, v in phase_exchange(torch).items()})
+
+    # A checkpoint restored onto the 3-shard mesh.
+    root = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
+    gen = torch.Generator("cuda").manual_seed(19)
+    state = {"params": {"embed": torch.randn((3072, 1152), generator=gen, device="cuda"),
+                        "norm": torch.randn((1152,), generator=gen, device="cuda")},
+             "opt": {"m": [torch.randn((3072, 1152), generator=gen, device="cuda")],
+                     "count": 4}}
+    ck = Checkpointer(root, async_save=False)
+    ck.save(2, state)
+    mesh = meshes[3]
+    shard = data_sharding(mesh)
+    shardings = {"params": {"embed": shard, "norm": shard}, "opt": {"m": [shard]}}
+    t0 = time.perf_counter()
+    restored = ck.restore(2, like=state, shardings=shardings)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    for leaf in (restored["params"]["embed"], restored["params"]["norm"],
+                 restored["opt"]["m"][0]):
+        check(isinstance(leaf, Sharded) and len(leaf.shards) == 3
+              and all(s.device == torch.device("cuda", 0) for s in leaf.shards),
+              "mesh restore: a leaf is not in 3 shards on the card")
+    whole = {"params": {k: gather(v) for k, v in restored["params"].items()},
+             "opt": {"m": [gather(restored["opt"]["m"][0])], "count": restored["opt"]["count"]}}
+    want, got = state_checksums(torch, state), state_checksums(torch, whole)
+    check(want == got, f"mesh restore: checksums {got} != saved {want}")
+    check(all(torch.equal(a, b) for a, b in (
+        (whole["params"]["embed"], state["params"]["embed"]),
+        (whole["params"]["norm"], state["params"]["norm"]),
+        (whole["opt"]["m"][0], state["opt"]["m"][0]))), "mesh restore: leaves differ")
+    log(f"mesh restore: a checkpoint of {len(want)} leaves restored onto 3 shards of "
+        f"cuda:0 in {restore_s:.4f} s, per-leaf f64 checksums equal the saved state's "
+        f"({json.dumps(got)}) on {CARD}")
+    import shutil
+
+    shutil.rmtree(root, ignore_errors=True)
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4459,27 +4728,36 @@ def main() -> int:
     launch_counts = phase_launch(torch)
     lap("phase 18 (launch tooling)")
 
-    # Phase 19: the kernels line (each kernel's launches on its main paths:
+    # Phase 19: the ensemble on meshes of the card, the int8 exchange over
+    # two ranks, restore onto a mesh.
+    mesh_counts = phase_mesh(torch, paper, sols, paper_results["greedy"])
+    lap("phase 19 (mesh sharding)")
+
+    # Phase 20: the kernels line (each kernel's launches on its main paths:
     # the calendar kernels' and port_stats' grow by the planner's run in
-    # phase 8, by ours_ls's runs in phase 10, by the streams of phase 11 and
-    # by the sweeps of phase 12, lp_terms_batch's by the streams' and the
-    # sweeps' LPs, mlstm_chunk's, quantize's and dequantize's by phase 13's
-    # training and flash_attention's by the serves of phases 14-17 and the
-    # counted steps of phase 18), then the result.
+    # phase 8, by ours_ls's runs in phase 10, by the streams of phase 11,
+    # by the sweeps of phase 12 and by the sharded runs of phase 19,
+    # lp_terms_batch's by the streams', the sweeps' and the sharded LPs,
+    # mlstm_chunk's by phase 13's training, quantize's and dequantize's by
+    # it and by phase 19's ranks, and flash_attention's by the serves of
+    # phases 14-17 and the counted steps of phase 18), then the result.
     for name in ("pair_resolve", "port_stats"):
         counts[name] += (train_counts[name] + sum(c[name] for c in refine_counts.values())
-                         + stream_counts[name] + fabric_counts[name])
-    counts["lp_terms_batch"] += stream_counts["lp_terms_batch"] + fabric_counts["lp_terms_batch"]
+                         + stream_counts[name] + fabric_counts[name] + mesh_counts[name])
+    counts["lp_terms_batch"] += (stream_counts["lp_terms_batch"]
+                                 + fabric_counts["lp_terms_batch"]
+                                 + mesh_counts["lp_terms_batch"])
     flow_counts["event_resolve"] += (sum(c["event_resolve"] for c in refine_counts.values())
                                      + stream_counts["event_resolve"]
-                                     + fabric_counts["event_resolve"])
+                                     + fabric_counts["event_resolve"]
+                                     + mesh_counts["event_resolve"])
     counts["lp_terms"] = single_counts["lp_terms"] + fabric_counts["lp_terms"]
     counts["event_resolve"] = flow_counts["event_resolve"]
     counts["flash_attention"] = sum(c["flash_attention"] for c in (
         serve_counts, rglru_counts, mla_counts, moe_counts, cross_counts, launch_counts))
     counts["mlstm_chunk"] = xlstm_counts["mlstm_chunk"] + xtrain_counts["mlstm_chunk"]
-    counts["quantize"] = train_counts["quantize"] + xtrain_counts["quantize"]
-    counts["dequantize"] = train_counts["dequantize"] + xtrain_counts["dequantize"]
+    for name in ("quantize", "dequantize"):
+        counts[name] = train_counts[name] + xtrain_counts[name] + mesh_counts[name]
     for r in rows:
         r["launches"] = counts[r["name"]]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -16,8 +16,12 @@ for a CPU leaf) and the writer thread saves that snapshot while training
 goes on.  Leaves are tensors, NumPy arrays or Python numbers; a tensor of
 a dtype NumPy lacks (bf16) raises `TypeError` (the trainer saves f32
 masters and moments only).  `restore` casts each leaf to the dtype of the
-matching leaf of ``like`` and places it on that leaf's device, or on
-``device=`` when given: it stands in for the reference's ``shardings=``.
+matching leaf of ``like`` and places it on that leaf's device, on
+``device=`` when given, or under ``shardings=`` as the reference does: a
+tree like ``like`` of `repro_torch.launch.mesh.NamedSharding`s, each
+tensor leaf placed with `repro_torch.launch.mesh.place` (a `Sharded` value
+over the mesh's devices, or a tensor where the spec is replicated or one
+device holds it), so a checkpoint restores onto a mesh of any size.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from typing import Any
 
 import numpy as np
 import torch
+
+from repro_torch.launch.mesh import place
 
 __all__ = ["Checkpointer", "latest_step", "flatten"]
 
@@ -149,13 +155,25 @@ class Checkpointer:
             self._thread.join()
 
     # ------------------------------------------------------------ restore
-    def restore(self, step: int, like: Any, device: str | torch.device | None = None) -> Any:
+    def restore(
+        self,
+        step: int,
+        like: Any,
+        device: str | torch.device | None = None,
+        shardings: Any = None,
+    ) -> Any:
         """``like``'s structure with the leaves saved at ``step``, each cast
-        to ``like``'s dtype: tensors on ``device`` or else the device of
-        ``like``'s leaf, NumPy arrays as NumPy, Python numbers as their
-        type.  Missing keys raise `KeyError`, other shapes `ValueError`."""
+        to ``like``'s dtype: tensors on ``device``, under their entry of
+        ``shardings`` (a tree like ``like``; a missing entry leaves its leaf
+        on ``like``'s device), or else on the device of ``like``'s leaf;
+        NumPy arrays as NumPy, Python numbers as their type.  Missing keys
+        raise `KeyError`, other shapes `ValueError`, ``device`` with
+        ``shardings`` `ValueError`."""
+        if device is not None and shardings is not None:
+            raise ValueError("restore: pass device= or shardings=, not both")
         t0 = time.perf_counter()
         flat_like = flatten(like)
+        flat_sh = {} if shardings is None else flatten(shardings)
         out = {}
         with np.load(os.path.join(self.dir, f"step_{step}", "arrays.npz")) as data:
             missing = set(flat_like) - set(data.files)
@@ -166,7 +184,9 @@ class Checkpointer:
                 shape = tuple(ref.shape) if hasattr(ref, "shape") else ()
                 if tuple(arr.shape) != shape:
                     raise ValueError(f"{k}: checkpoint shape {arr.shape} != expected {shape}")
-                if isinstance(ref, torch.Tensor):
+                if isinstance(ref, torch.Tensor) and k in flat_sh:
+                    out[k] = place(torch.from_numpy(arr).to(ref.dtype), flat_sh[k])
+                elif isinstance(ref, torch.Tensor):
                     out[k] = torch.from_numpy(arr).to(
                         device=ref.device if device is None else device, dtype=ref.dtype)
                 elif isinstance(ref, np.ndarray):

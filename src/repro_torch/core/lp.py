@@ -51,6 +51,7 @@ from repro_torch.core.coflow import CoflowInstance
 from repro_torch.device import resolve_device
 from repro_torch.kernels.lp_terms import lp_terms, lp_terms_batch
 from repro_torch.kernels.port_stats import port_stats
+from repro_torch.launch.mesh import NamedSharding, Sharded, drive, gather, place
 
 __all__ = [
     "LPSolution",
@@ -103,9 +104,11 @@ class LPSolutionBatch:
     """Padded ensemble solution of the ordering LP, as device tensors.
 
     One row per bucket member, padded to the bucket shape; padded coflow
-    slots carry completion 0.  `order_batch` turns the completions into
-    every member's global order in one masked stable argsort; `unpack`
-    materializes per-instance `LPSolution`s on the host.
+    slots carry completion 0.  A sharded solve leaves its fields `Sharded`
+    and `repro_torch.experiments.results.device_gather` makes them host
+    NumPy; both methods take any of the three.  `order_batch` turns the
+    completions into every member's global order in one masked stable
+    argsort; `unpack` materializes per-instance `LPSolution`s on the host.
     """
 
     completion: torch.Tensor  # (B, Mp) f32 T~_m, 0 on padded slots
@@ -117,16 +120,18 @@ class LPSolutionBatch:
     def order_batch(self, coflow_mask: torch.Tensor) -> torch.Tensor:
         """(B, Mp) padded orders: non-decreasing T~_m per member, padded
         slots pushed stably to the tail (Algorithm 1 Line 2)."""
-        key = torch.where(
-            coflow_mask, self.completion.to(torch.float64), math.inf
-        )
+        comp = torch.as_tensor(gather(self.completion)).to(coflow_mask.device, torch.float64)
+        key = torch.where(coflow_mask, comp, math.inf)
         return torch.argsort(key, dim=1, stable=True)
 
     def unpack(self, num_coflows: Sequence[int]) -> list[LPSolution]:
         """Per-instance `LPSolution`s (host f64, as the reference's)."""
-        comp = self.completion.cpu().numpy().astype(np.float64)
-        y = self.y.cpu().numpy().astype(np.float64)
-        obj = self.objective.cpu().numpy().astype(np.float64)
+
+        def host(x) -> np.ndarray:
+            x = gather(x)
+            return (x.cpu().numpy() if isinstance(x, torch.Tensor) else x).astype(np.float64)
+
+        comp, y, obj = host(self.completion), host(self.y), host(self.objective)
         return [
             LPSolution(
                 completion=comp[b, :M],
@@ -305,8 +310,10 @@ def _pack(
     pad_ports: int | None,
     device: torch.device,
     warm_start_orders: Sequence[np.ndarray | None] | None = None,
+    pad_members: int | None = None,
 ) -> dict[str, torch.Tensor]:
     B = len(instances)
+    Bp = B if pad_members is None else max(pad_members, B)
     if warm_start_orders is None:
         warm_start_orders = [None] * B
     Ms = [inst.num_coflows for inst in instances]
@@ -320,15 +327,15 @@ def _pack(
         )
 
     f32 = dict(dtype=torch.float32, device=device)
-    Y0 = torch.zeros((B, Mp, Mp), **f32)
-    p_rho = torch.zeros((B, Mp, Pp), **f32)
-    p_tau = torch.zeros((B, Mp, Pp), **f32)
-    weights = np.zeros((B, Mp), dtype=np.float32)
-    releases = np.zeros((B, Mp), dtype=np.float32)
-    inv_R = np.zeros(B, dtype=np.float32)
-    delta_over_K = np.zeros(B, dtype=np.float32)
-    coflow_mask = np.zeros((B, Mp), dtype=bool)
-    port_mask = np.zeros((B, Pp), dtype=bool)
+    Y0 = torch.zeros((Bp, Mp, Mp), **f32)
+    p_rho = torch.zeros((Bp, Mp, Pp), **f32)
+    p_tau = torch.zeros((Bp, Mp, Pp), **f32)
+    weights = np.zeros((Bp, Mp), dtype=np.float32)
+    releases = np.zeros((Bp, Mp), dtype=np.float32)
+    inv_R = np.zeros(Bp, dtype=np.float32)
+    delta_over_K = np.zeros(Bp, dtype=np.float32)
+    coflow_mask = np.zeros((Bp, Mp), dtype=bool)
+    port_mask = np.zeros((Bp, Pp), dtype=bool)
     for b, inst in enumerate(instances):
         M, P = Ms[b], Ps[b]
         rho, tau = stats[b]
@@ -357,6 +364,7 @@ def pack_lp_arrays(
     pad_coflows: int | None = None,
     pad_ports: int | None = None,
     warm_start_orders: Sequence[np.ndarray | None] | None = None,
+    pad_members: int | None = None,
     device: str | torch.device = "cuda",
 ) -> dict[str, torch.Tensor]:
     """Pad an ensemble into the batched LP solver's input tensors.
@@ -365,14 +373,17 @@ def pack_lp_arrays(
     tensors on ``device``; the port statistics come from the `port_stats`
     kernel.  ``pad_*`` default to the ensemble maxima;
     ``warm_start_orders`` gives a member's warm start from a priority
-    order in place of the weighted lower-bound order.
+    order in place of the weighted lower-bound order.  ``pad_members``
+    rounds the member axis up (to a multiple of a mesh's shard count):
+    padded members are all-masked zero rows (``inv_R = 0``), exact no-ops.
     """
     device = resolve_device(device)
     instances = list(instances)
     stats = instance_port_stats(instances, device)
     glbs = [global_lower_bound(i, s[0]) for i, s in zip(instances, stats)]
     return _pack(
-        instances, stats, glbs, pad_coflows, pad_ports, device, warm_start_orders
+        instances, stats, glbs, pad_coflows, pad_ports, device, warm_start_orders,
+        pad_members,
     )
 
 
@@ -421,7 +432,9 @@ def _completion_from_Y(
     with the releases -- the reference's max over [load, rec, release]
     (padded ports hold zeros, real loads are >= 0).  Smooth: the
     temperature-scaled logsumexp over the same columns, padded ports masked
-    to -inf, through a matrix product so autograd differentiates it.
+    to -inf, through a matrix product so autograd differentiates it (a
+    bucket's on a card through `member_product`, so that a member's bits
+    do not depend on how many members share the solve).
     """
     batched = Y.dim() == 3
     X = _precedence_X(Y, coflow_mask)
@@ -434,8 +447,9 @@ def _completion_from_Y(
         inv_R, delta_over_K = inv_R[:, None, None], delta_over_K[:, None, None]
         t = temp[:, None, None]
     Xt = X.transpose(-1, -2)
-    load = (Xt @ p_rho) * inv_R
-    rec = (Xt @ p_tau) * delta_over_K
+    product = member_product if batched and _fixed_runs(Y) else torch.matmul
+    load = product(Xt, p_rho) * inv_R
+    rec = product(Xt, p_tau) * delta_over_K
     z = torch.cat([load, rec, releases[..., None]], dim=-1) / t
     if port_mask is not None:
         col_mask = torch.cat(
@@ -443,6 +457,58 @@ def _completion_from_Y(
         )
         z = torch.where(col_mask[:, None, :], z, -math.inf)
     return temp[..., None] * torch.logsumexp(z, dim=-1)
+
+
+#: Members of each batched product of the smooth gradient on a card.
+PRODUCT_MEMBERS = 32
+
+
+def _fixed_runs(t: torch.Tensor) -> bool:
+    """Whether a batched solve on ``t``'s device pads its members to a
+    multiple of `PRODUCT_MEMBERS` and runs its products through
+    `member_product`: on a card (see there)."""
+    return t.is_cuda
+
+
+def _runs_bmm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` over the leading member axis, one `torch.bmm` a run of
+    `PRODUCT_MEMBERS` members."""
+    B, C = a.shape[0], PRODUCT_MEMBERS
+    if B % C:
+        raise ValueError(f"member_product: {B} members, not a multiple of {C}")
+    if B == C:
+        return torch.bmm(a, b)
+    return torch.cat([torch.bmm(a[i:i + C], b[i:i + C]) for i in range(0, B, C)])
+
+
+class _MemberProduct(torch.autograd.Function):
+    """`member_product` with its gradient to ``a`` through the same runs
+    (``b`` is a constant of the solve)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(b)
+        return _runs_bmm(a, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (b,) = ctx.saved_tensors
+        return _runs_bmm(grad, b.transpose(-1, -2)), None
+
+
+def member_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched ``a @ b`` whose bits do not depend on the member count.
+
+    cuBLAS picks a batched product's algorithm by, among others, the batch
+    count, so a member's last bits moved with B on an H100 (B = 32 against
+    B = 8 and 11).  A sharded solve gives each shard fewer members, so on a
+    card the batched solve pads its members to a multiple of
+    `PRODUCT_MEMBERS` (`_batch_steps`) and the smooth gradient's products
+    go in runs of exactly that many, forward and backward: each member's
+    bits then depend on (M, P) alone.  At B = 32 this is the one product
+    the plain ``@`` issues.
+    """
+    return _MemberProduct.apply(a, b)
 
 
 def _adam_step(Y, m, v, g, t: int, lr: float):
@@ -454,7 +520,7 @@ def _adam_step(Y, m, v, g, t: int, lr: float):
     return torch.clamp(Y - lr * mh / (torch.sqrt(vh) + 1e-8), 0.0, 1.0), m, v
 
 
-def _subgradient_run(
+def _subgradient_steps(
     Y0: torch.Tensor,
     weights: torch.Tensor,
     completion: Callable[..., torch.Tensor],
@@ -462,7 +528,10 @@ def _subgradient_run(
     iters: int,
     lr: float = 0.05,
 ):
-    """Projected Adam on the temperature-annealed smoothed objective.
+    """Projected Adam on the temperature-annealed smoothed objective: a
+    generator that yields after each step and returns ``(best_Y, T_best,
+    best_F)``, so `repro_torch.launch.mesh.drive` can step the shards of a
+    sharded solve in turns.
 
     ``completion(Y, temp=None)`` is `_completion_from_Y` bound to one
     instance's or one bucket's statics; ``weights`` has Y0's leading axes
@@ -493,7 +562,13 @@ def _subgradient_run(
         better = F < best_F
         best_Y = torch.where(better[..., None, None], Y, best_Y)
         best_F = torch.where(better, F, best_F)
+        yield
     return best_Y, completion(best_Y), best_F
+
+
+def _subgradient_run(*args, **kwargs):
+    """`_subgradient_steps` run to its end."""
+    return drive([_subgradient_steps(*args, **kwargs)])[0]
 
 
 def solve_subgradient(
@@ -541,11 +616,18 @@ def solve_subgradient(
 def solve_subgradient_batch_arrays(
     arrays: dict[str, torch.Tensor],
     iters: int = 3000,
+    sharding: NamedSharding | None = None,
 ) -> LPSolutionBatch:
     """Array-in/array-out ensemble LP solve on the arrays' device.
 
-    ``arrays`` is the `pack_lp_arrays` dict.  Returns the padded
-    `LPSolutionBatch` -- nothing is unpadded here.
+    ``arrays`` is the `pack_lp_arrays` dict.  ``sharding`` (a data-axis
+    `NamedSharding`, `repro_torch.launch.mesh.data_sharding`) places every
+    input with `place` and solves each shard on its device, the shards'
+    steps issued in turns (`drive`); members are independent, so each
+    member's bits are the unsharded solve's.  The result's fields are then
+    `Sharded` (`repro_torch.experiments.results.device_gather` brings them
+    to the host).  Returns the padded `LPSolutionBatch` -- nothing is
+    unpadded here.
     """
     # The smooth gradient's products must be full f32, as in the reference.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -559,18 +641,40 @@ def solve_subgradient_batch_arrays(
             completion=zeros(B, Mp), y=zeros(B, Mp, Mp), objective=zeros(B),
             method="subgradient_batch", iterations=iters,
         )
+    parts = [ins]
+    if sharding is not None:
+        placed = [place(x, sharding) for x in ins]
+        parts = [placed]
+        if isinstance(placed[0], Sharded):
+            parts = [[x.shards[i] for x in placed] for i in range(len(placed[0].shards))]
+    results = drive([_batch_steps(part, iters) for part in parts])
+    if len(results) == 1:
+        best_Y, T_best, best_F = results[0]
+    else:
+        best_Y, T_best, best_F = (
+            Sharded(tuple(r[j] for r in results), sharding) for j in range(3)
+        )
+    return LPSolutionBatch(
+        completion=T_best, y=best_Y, objective=best_F,
+        method="subgradient_batch", iterations=iters,
+    )
+
+
+def _batch_steps(ins: Sequence[torch.Tensor], iters: int):
+    """The batched solve's steps over one set of `LP_ARRAY_NAMES` tensors;
+    on a card the members pad to a multiple of `PRODUCT_MEMBERS` with
+    all-masked zero members (exact no-ops) for `member_product`."""
+    B = ins[0].shape[0]
+    pad = -B % PRODUCT_MEMBERS if _fixed_runs(ins[0]) else 0
+    if pad:
+        ins = [torch.cat([x, x.new_zeros((pad, *x.shape[1:]))]) for x in ins]
     Y0, p_rho, p_tau, weights, releases, inv_R, delta_over_K, cm, pm = ins
     completion = functools.partial(
         _completion_from_Y, p_rho=p_rho, p_tau=p_tau, releases=releases,
         inv_R=inv_R, delta_over_K=delta_over_K, coflow_mask=cm, port_mask=pm,
     )
-    best_Y, T_best, best_F = _subgradient_run(
-        Y0, weights, completion, iters=iters
-    )
-    return LPSolutionBatch(
-        completion=T_best, y=best_Y, objective=best_F,
-        method="subgradient_batch", iterations=iters,
-    )
+    best_Y, T_best, best_F = yield from _subgradient_steps(Y0, weights, completion, iters=iters)
+    return best_Y[:B], T_best[:B], best_F[:B]
 
 
 def solve_subgradient_batch(

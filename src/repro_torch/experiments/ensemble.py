@@ -4,9 +4,11 @@ Port of `repro.experiments.ensemble`.  Instances are grouped into shape
 buckets (M and 2N rounded up to a quantum) and each bucket is solved by
 the batched solver (`lp.pack_lp_arrays` -> `lp.solve_subgradient_batch_arrays`)
 on the device.  A quantum of ``None`` collapses that axis to the ensemble
-maximum (one bucket, one solve).  The reference's ``mesh`` member sharding
-is left for the launch tooling (ROADMAP item 10b): members are independent,
-so a sharded solve gives the same bits per member.
+maximum (one bucket, one solve).  With ``mesh=`` each bucket's member axis
+is padded to a multiple of the mesh's ``data`` size and solved sharded
+(`repro_torch.launch.mesh.data_sharding`), then gathered to the host
+(`repro_torch.experiments.results.device_gather`); members are
+independent, so each member's bits are the unsharded solve's.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import torch
 from repro_torch.core import lp
 from repro_torch.core.coflow import CoflowInstance
 from repro_torch.device import resolve_device
+from repro_torch.experiments.results import device_gather
+from repro_torch.launch.mesh import Mesh, data_axis_size, data_sharding
 
 __all__ = ["COLLAPSED", "Bucket", "bucket_shape", "build_buckets", "solve_ensemble_lp"]
 
@@ -89,21 +93,33 @@ def solve_ensemble_lp(
     m_quantum: int | None = 8,
     p_quantum: int | None = 8,
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ) -> list[lp.LPSolution]:
     """Ordering-LP solutions for a whole ensemble, one batched solve per
-    shape bucket on ``device``.  Returns solutions in input order."""
+    shape bucket on ``device``.  Returns solutions in input order.
+
+    With ``mesh`` every bucket's padded member axis is sharded over the
+    mesh's ``data`` axis; bucket sizes that do not divide the shard count
+    round up with fully masked members.
+    """
     device = resolve_device(device)
     instances = list(instances)
     solutions: list = [None] * len(instances)
+    sharding, n_shards = None, 1
+    if mesh is not None:
+        sharding, n_shards = data_sharding(mesh), data_axis_size(mesh)
     for bucket in build_buckets(instances, m_quantum, p_quantum):
         members = [instances[i] for i in bucket.indices]
         arrays = lp.pack_lp_arrays(
             members,
             pad_coflows=bucket.num_coflows,
             pad_ports=bucket.num_flat_ports,
+            pad_members=_round_up(len(members), n_shards),
             device=device,
         )
-        batch = lp.solve_subgradient_batch_arrays(arrays, iters=iters)
+        batch = lp.solve_subgradient_batch_arrays(arrays, iters=iters, sharding=sharding)
+        if sharding is not None:
+            batch = device_gather(batch)
         sols = batch.unpack([inst.num_coflows for inst in members])
         for i, sol in zip(bucket.indices, sols):
             solutions[i] = sol

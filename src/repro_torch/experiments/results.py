@@ -10,6 +10,7 @@ scripts and spreadsheets read one artifact.
 from __future__ import annotations
 
 import csv
+import dataclasses
 import json
 import os
 from typing import Any, Iterable, Mapping, Sequence
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.scheduler import tail_cct
+from repro_torch.launch.mesh import Sharded
 from repro_torch.tree import map_leaves
 
 __all__ = [
@@ -31,15 +33,30 @@ __all__ = [
 
 
 def device_gather(tree):
-    """Every tensor of a nested dict / list tree as host NumPy.
+    """Every tensor of a tree as host NumPy, a `Sharded` one assembled from
+    its shards.
 
-    The step that brings a batch computed on the card (an
-    `LPSolutionBatch`'s fields, say) to the host for unpadding and export.
-    Leaves that are not tensors pass through untouched.
+    The cross-device aggregation step: a batch computed on the card, or
+    split over a mesh's ``data`` axis (an `LPSolutionBatch` from a sharded
+    solve, say), comes to the host for unpadding and export.  The tree is
+    nested dicts and lists, and a dataclass instance is a node whose
+    fields are mapped (as the reference's registered dataclasses are);
+    other leaves pass through untouched.
     """
-    return map_leaves(
-        lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x, tree
-    )
+
+    def host(x):
+        if isinstance(x, Sharded):
+            x = x.gather()
+        if isinstance(x, torch.Tensor):
+            return x.detach().cpu().numpy()
+        if dataclasses.is_dataclass(x) and not isinstance(x, type):
+            return dataclasses.replace(
+                x, **{f.name: device_gather(getattr(x, f.name))
+                      for f in dataclasses.fields(x) if f.init}
+            )
+        return x
+
+    return map_leaves(host, tree)
 
 
 def results_dir() -> str:

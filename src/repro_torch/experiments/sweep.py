@@ -25,9 +25,10 @@ perturbed one recomputes exactly the changed cells.
                          ``device`` (the `lp_terms` kernel on a card).
 
 Every stage runs on ``device`` (the card by default; it raises without
-one).  The reference's ``mesh`` member sharding is left for the launch
-tooling (ROADMAP item 10b); a sharded sweep's rows equal the
-single-device run's.
+one).  ``mesh=`` shards the member axis of every batched stage over the
+mesh's ``data`` axis (the bucketed LP solves, the allocation scan, the
+card calendars): a sharded sweep's rows equal the single-device run's
+byte for byte, so ``mesh`` joins no cache key.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from repro_torch.device import resolve_device
 from repro_torch.experiments import cache as cache_mod
 from repro_torch.experiments.ensemble import solve_ensemble_lp
 from repro_torch.experiments.results import save_rows, tail_columns
+from repro_torch.launch.mesh import Mesh
 
 __all__ = ["DEFAULT_SCHEMES", "InstanceRecord", "SweepResult", "sweep", "config_digest"]
 
@@ -210,6 +212,7 @@ def sweep(
     cache: "cache_mod.SweepCache | str | None" = None,
     refine=None,
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ) -> SweepResult:
     """Run an ensemble end to end with one shared LP phase on ``device``.
 
@@ -233,6 +236,12 @@ def sweep(
     shares the ordering pass and the allocation through the stage cache.
     Certificates ride in the ours cell, so with a cache ``"ours"`` must be
     among the schemes.
+
+    ``mesh`` shards the ensemble axis of the batched LP solves and of
+    every `run_batch` over the mesh's ``data`` axis, members padded up to
+    its size; the per-instance ``alloc="loop"`` path ignores it.  Rows are
+    bit-identical to the unsharded sweep's, so ``mesh`` joins no cache
+    key.
 
     ``refine`` applies candidate-search refinement to every scheme (a
     `RefineSpec`, ``True`` or a field dict; schemes whose spec pins one,
@@ -275,7 +284,7 @@ def sweep(
     n = len(instances)
 
     # ---- cell keying: which (instance, scheme) cells need computing ----
-    # `validate` is left out: it checks, it does not change a value.
+    # `validate` and `mesh` are left out: they change no value.
     keys: dict[tuple[int, str], str] = {}
     payloads: dict[tuple[int, str], dict] = {}
     if cache is not None:
@@ -312,7 +321,7 @@ def sweep(
         if lp_method == "batch":
             sub_sols = solve_ensemble_lp(
                 sub, iters=lp_iters, m_quantum=m_quantum, p_quantum=p_quantum,
-                device=device,
+                device=device, mesh=mesh,
             )
         elif lp_method == "exact":
             sub_sols = [lp.solve_exact(inst) for inst in sub]
@@ -340,7 +349,7 @@ def sweep(
             sc = stage_caches.setdefault(tuple(idx), {})
             res = pipe.run_batch(
                 sub, lp_solutions=subsols, validate=validate, device=device,
-                stage_cache=sc, refine=refine,
+                stage_cache=sc, refine=refine, mesh=mesh,
             )
         else:
             res = [

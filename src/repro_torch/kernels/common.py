@@ -196,10 +196,18 @@ def refuse_grad(name: str, *tensors: torch.Tensor | None) -> None:
         )
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry point ``name``; raise if the launch was refused."""
+def launch(name: str, *args, device: torch.device) -> None:
+    """Call C entry point ``name`` with ``device`` (the operands' card) the
+    current device; raise if the launch was refused.
+
+    The C side launches on the current device and keeps its per-device
+    state (the shared-memory limits) under it, while `stream_of` hands it
+    the operands' card's stream: on a card other than the current one the
+    launch would go astray, so the operands' card is made current first.
+    """
     lib = library()
-    err = getattr(lib, name)(*args)
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(*args)
     if err:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")

@@ -282,6 +282,7 @@ def event_resolve(
             "event_resolve", *(x.data_ptr() for x in ops), start.data_ptr(),
             first_in.data_ptr(), first_out.data_ptr(), blocked.data_ptr(),
             G, F, N, int(discipline == "reserving"), plan.word, stream_of(src),
+            device=src.device,
         )
         LAUNCHES += 1
     return start, first_in, first_out, blocked

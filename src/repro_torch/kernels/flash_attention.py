@@ -279,7 +279,7 @@ def _route(q, k, v, causal, window, q_offset) -> torch.Tensor:
         *(s for op in ops for s in op[1:]), int(causal),
         -1 if window is None else int(window), int(q_offset),
         ctypes.c_float(1.0 / D**0.5), _ROUTE_CODES[p.route],
-        p.n_split, p.begin, p.length, stream_of(q),
+        p.n_split, p.begin, p.length, stream_of(q), device=q.device,
     )
     LAUNCHES += 1
     return out

@@ -231,6 +231,7 @@ def lp_terms_batch(
             "lp_terms_batch", *(t.data_ptr() for t in operands),
             t_load.data_ptr(), t_rec.data_ptr(), B, M, P,
             p.rows, p.ports, p.rows_per_thread, p.groups, stream_of(x),
+            device=x.device,
         )
         LAUNCHES += 1
     return t_load, t_rec
@@ -293,6 +294,7 @@ def lp_terms(
             "lp_terms", *(t.data_ptr() for t in operands), float(inv_R),
             float(delta_over_K), t_load.data_ptr(), t_rec.data_ptr(), M, P,
             p.rows, p.ports, p.rows_per_thread, p.groups, stream_of(x),
+            device=x.device,
         )
         SINGLE_LAUNCHES += 1
     return t_load, t_rec

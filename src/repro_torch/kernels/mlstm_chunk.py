@@ -115,9 +115,8 @@ def block_smem(device: int, route: str, Dh: int, C: int) -> tuple[int, int]:
     where the route does not take them; the most a block may take on CUDA
     device ``device``), as the kernels' source computes them."""
     need, limit = ctypes.c_longlong(), ctypes.c_int()
-    with torch.cuda.device(device):
-        launch("mlstm_chunk_smem", _ROUTE_CODES[route], Dh, C, ctypes.byref(need),
-               ctypes.byref(limit))
+    launch("mlstm_chunk_smem", _ROUTE_CODES[route], Dh, C, ctypes.byref(need),
+           ctypes.byref(limit), device=torch.device("cuda", device))
     return need.value, limit.value
 
 
@@ -286,6 +285,7 @@ def _route(q, k, v, log_f, log_i, state, C):
         None if n0 is None else n0.data_ptr(), h.data_ptr(), s_out.data_ptr(),
         n_out.data_ptr(), None if scratch is None else scratch.data_ptr(),
         _DTYPE_CODES[q.dtype], BH, S, Dh, C, _ROUTE_CODES[route], stream_of(q),
+        device=q.device,
     )
     LAUNCHES += 1
     return h, (s_out, n_out)

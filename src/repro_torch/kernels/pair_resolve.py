@@ -168,7 +168,7 @@ def pair_resolve(
         p = plan if plan is not None else _plan(G, N, sm_count(claim.device))
         launch(
             "pair_resolve", claim.data_ptr(), idle.data_ptr(), start.data_ptr(),
-            G, N, p.width, stream_of(claim),
+            G, N, p.width, stream_of(claim), device=claim.device,
         )
         LAUNCHES += 1
     return start

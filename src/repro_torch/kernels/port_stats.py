@@ -260,7 +260,7 @@ def port_stats(
     if M and N:
         launch(
             "port_stats", demands.data_ptr(), rho.data_ptr(), tau.data_ptr(),
-            M, N, plan.word, stream_of(demands),
+            M, N, plan.word, stream_of(demands), device=demands.device,
         )
         LAUNCHES += 1
     return rho, tau

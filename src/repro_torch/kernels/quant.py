@@ -87,7 +87,7 @@ def quantize(x: torch.Tensor, noise: torch.Tensor) -> tuple[torch.Tensor, torch.
     scale = torch.empty((R,), dtype=torch.float32, device=x.device)
     if R and C:
         launch("quantize", x.data_ptr(), noise.data_ptr(), q.data_ptr(),
-               scale.data_ptr(), R, C, stream_of(x))
+               scale.data_ptr(), R, C, stream_of(x), device=x.device)
         LAUNCHES_QUANTIZE += 1
     return q, scale
 
@@ -110,7 +110,7 @@ def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     out = torch.empty((R, C), dtype=torch.float32, device=q.device)
     if R and C:
         launch("dequantize", q.data_ptr(), scale.data_ptr(), out.data_ptr(), R, C,
-               stream_of(q))
+               stream_of(q), device=q.device)
         LAUNCHES_DEQUANTIZE += 1
     return out
 

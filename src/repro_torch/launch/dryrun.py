@@ -16,7 +16,7 @@ prefill or serve) on ``meta`` under the ATen operation counter
 PyTorch partitions nothing here: on a mesh of more than one device the
 step's counts, temporaries and outputs are split evenly over the chips
 (the result says ``"partition": "even"``) and carry no collective term;
-ROADMAP item 10b (b) brings both.  A failure (a spec that does not divide,
+ROADMAP item 10b (c) brings both.  A failure (a spec that does not divide,
 a kernel's check, a shape the model refuses) is a bug: the run fails
 loudly.
 

@@ -26,7 +26,7 @@ counted as it runs:
     (`repro_torch.kernels.common.kernel_work`), so a step counts the same
     on ``meta``, on the host and on the card.
 
-Collective bytes are zero on one card (ROADMAP item 10b (b) counts them).
+Collective bytes are zero on one card (ROADMAP item 10b (c) counts them).
 
     with OpCounter() as counter:
         step(...)

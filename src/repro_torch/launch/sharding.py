@@ -18,7 +18,7 @@
 A partition spec is a tuple, one entry per leading dimension: ``None``, a
 mesh axis name, or a tuple of names (`repro_torch.launch.mesh`).  The
 dry-run reads the specs (`repro_torch.launch.specs`); placing tensors by
-them across cards is ROADMAP item 10b (b).
+them across cards is ROADMAP item 10b (c).
 """
 
 from __future__ import annotations

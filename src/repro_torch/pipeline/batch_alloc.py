@@ -26,12 +26,20 @@ service's slot arena); an ensemble built to its maxima has a member that
 fills the axis, so its loop is unchanged.  The loop costs a few launches
 per flow; a kernel for this scan has no Pallas counterpart and is later
 work.
+
+Under a sharded batch (``ensemble.sharding``) the orders are placed with
+the batch's sharding and each shard's scan runs on its device, the
+shards' flow steps issued in turns (`repro_torch.launch.mesh.drive`); the
+results are gathered on the batch's device.  A shard's loop stops after
+its own longest member, which changes only the never-read ``core``
+entries of invalid flows.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.launch.mesh import Sharded, drive, place
 from repro_torch.pipeline.ensemble_batch import PAD_LB, AllocationBatch, EnsembleBatch
 
 __all__ = ["allocate_batch_arrays"]
@@ -42,7 +50,22 @@ def allocate_batch_arrays(
     orders: torch.Tensor,
     include_tau: bool = True,
 ) -> AllocationBatch:
-    """Greedy allocation of a whole `EnsembleBatch` along (B, Mp) orders."""
+    """Greedy allocation of a whole `EnsembleBatch` along (Bp, Mp) orders,
+    each shard on its device under the batch's sharding."""
+    if ensemble.sharding is None:
+        return drive([_allocate_steps(ensemble, orders, include_tau)])[0]
+    parts = ensemble.shards()
+    placed = place(orders, ensemble.sharding)
+    order_parts = placed.shards if isinstance(placed, Sharded) else (placed,)
+    results = drive([
+        _allocate_steps(p, o, include_tau) for p, o in zip(parts, order_parts)
+    ])
+    return AllocationBatch.concat(results, ensemble.device)
+
+
+def _allocate_steps(ensemble: EnsembleBatch, orders: torch.Tensor, include_tau: bool):
+    """The scan as a generator: one yield a flow step, the
+    `AllocationBatch` its return value."""
     B, Fp = ensemble.flow_size.shape
     dev = ensemble.device
     perm = ensemble.permute_flows(orders)
@@ -97,6 +120,7 @@ def allocate_batch_arrays(
         lb[rows, k] = torch.where(v, cand[rows, k], lb[rows, k])
         core[:, f] = k
         lbs[:, f] = torch.where(core_mask, lb, -torch.inf).amax(dim=1)
+        yield
 
     # lb starts at zero, so before any flow lands the prefix LB is 0.
     if Fp:

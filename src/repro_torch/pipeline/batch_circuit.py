@@ -49,6 +49,14 @@ both disciplines, under every engine.
 The member tables (partition, padding and segment metadata) are built on
 the host in NumPy: they are static per call.  `cct_batch_arrays` is the
 lean form refinement evaluates through: the same calendar, only the CCTs.
+
+Under a sharded ensemble (``ensemble.sharding``) the card engines round the
+calendar's (instance x core) member axis up to the shard count and run one
+calendar a shard on its device, the shards' runs of rounds issued in turns
+(`repro_torch.launch.mesh.drive`).  A calendar member's rounds depend on
+that member alone, so its times are the unsharded run's bit for bit; each
+shard stops when its own members are done.  ``"wide"`` is host NumPy and
+ignores the sharding.
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ from repro_torch.core.scheduler import _flow_priorities
 from repro_torch.core.validate import ccts_from_schedules
 from repro_torch.kernels.event_resolve import event_resolve
 from repro_torch.kernels.pair_resolve import pair_resolve
+from repro_torch.launch.mesh import NamedSharding, drive
 from repro_torch.pipeline.ensemble_batch import AllocationBatch, EnsembleBatch
 
 __all__ = [
@@ -156,10 +165,11 @@ def _port_segments(keys: np.ndarray, n_pad: int):
     return perm, offs, segend, segempty
 
 
-def _pad_members(tabs: Sequence[dict], num_ports_max: int) -> dict:
+def _pad_members(tabs: Sequence[dict], num_ports_max: int, g_multiple: int = 1) -> dict:
     """Pad per-member flow tables (each with F_k > 0) into one
-    (G, Fmax) / (G, Nmax) bucket; padded flows and members never pend."""
-    G = _round_up(len(tabs), _G_QUANTUM)
+    (G, Fmax) / (G, Nmax) bucket, G also a multiple of ``g_multiple`` (a
+    shard count); padded flows and members never pend."""
+    G = _round_up(_round_up(len(tabs), _G_QUANTUM), g_multiple)
     Fmax = _round_up(max(t["src"].shape[0] for t in tabs), _F_QUANTUM)
     Nmax = _round_up(num_ports_max, _N_QUANTUM)
     src = np.zeros((G, Fmax), dtype=np.int64)
@@ -247,8 +257,9 @@ class _Calendar:
         s["free_in"], s["free_out"] = free_in, free_out
         s["pending"], s["stalled"] = pending, stalled | stall
 
-    def run(self, check_every: int = _CHECK_EVERY) -> None:
-        """Rounds until no member is live, never past `event_bound`."""
+    def steps(self, check_every: int = _CHECK_EVERY):
+        """Rounds until no member is live, never past `event_bound`: a
+        generator that yields after each run of ``check_every`` rounds."""
         bound = event_bound(self.F)
         it = 0
         while it < bound and self.live():
@@ -257,6 +268,11 @@ class _Calendar:
                 self.round()
             it += n
             ROUNDS[self.engine] += n
+            yield
+
+    def run(self, check_every: int = _CHECK_EVERY) -> None:
+        """`steps` run to their end."""
+        drive([self.steps(check_every)])
 
 
 class _PairCalendar(_Calendar):
@@ -608,14 +624,20 @@ def _execute_members(
     labels: Sequence[str],
     engine: str = "kernel",
     check_every: int = _CHECK_EVERY,
+    sharding: NamedSharding | None = None,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Pad member tables and run the ``engine`` calendar (on ``device``,
     or on the host for ``"wide"``); return the (G, Fmax) establish /
-    complete arrays on the host."""
+    complete arrays on the host.  Under ``sharding`` the card engines
+    round G up to the shard count and run a calendar a shard, each on its
+    device."""
     if discipline not in ("reserving", "greedy"):
         raise ValueError(f"unknown discipline {discipline!r}")
     engine = resolve_engine(engine, device)
-    pad = _pad_members(tabs, num_ports_max)
+    if engine == "wide":
+        sharding = None
+    g_multiple = 1 if sharding is None else sharding.num_shards
+    pad = _pad_members(tabs, num_ports_max, g_multiple)
     reserving = discipline == "reserving"
     if engine == "wide":
         return _run_calendar_wide(
@@ -623,11 +645,21 @@ def _execute_members(
             pad["Nmax"], reserving, bound=event_bound(pad["Fmax"]) + pad["Fmax"],
             labels=list(labels),
         )
-    cal = _CALENDARS[engine](pad, reserving, device)
-    cal.run(check_every)
-    s = cal.state
-    unfinished = s["pending"].any(dim=1).cpu().numpy()
-    stalled = s["stalled"].cpu().numpy()
+    if sharding is None:
+        cals = [_CALENDARS[engine](pad, reserving, device)]
+    else:
+        rows = pad["G"] // g_multiple
+        cals = [
+            _CALENDARS[engine](_pad_rows(pad, i * rows, (i + 1) * rows), reserving, dev)
+            for i, dev in enumerate(sharding.devices())
+        ]
+    drive([cal.steps(check_every) for cal in cals])
+
+    def host(key: str) -> np.ndarray:
+        return np.concatenate([cal.state[key].cpu().numpy() for cal in cals])
+
+    unfinished = np.concatenate([c.state["pending"].any(dim=1).cpu().numpy() for c in cals])
+    stalled = host("stalled")
     for g, label in enumerate(labels):
         if stalled[g]:
             raise RuntimeError(f"batched scheduler stalled ({label})")
@@ -635,7 +667,13 @@ def _execute_members(
             raise RuntimeError(
                 f"batched scheduler exceeded the event bound ({label})"
             )
-    return s["est"].cpu().numpy(), s["comp"].cpu().numpy()
+    return host("est"), host("comp")
+
+
+def _pad_rows(pad: dict, lo: int, hi: int) -> dict:
+    """Rows ``[lo, hi)`` of a padded bucket: one shard's calendar."""
+    out = {k: pad[k][lo:hi] for k in ("src", "dst", "rel", "dur", "pending")}
+    return dict(out, G=hi - lo, Fmax=pad["Fmax"], Nmax=pad["Nmax"])
 
 
 def _run_members(
@@ -697,6 +735,7 @@ def _run_members(
             ensemble.device,
             labels=[f"instance {b}, core {k}" for b, k, _, _ in members],
             engine=engine,
+            sharding=ensemble.sharding,
         )
         for g, (b, k, _, nb) in enumerate(members):
             if nb and not np.array_equal(est[g, :nb], tabs[g]["rel"][:nb]):

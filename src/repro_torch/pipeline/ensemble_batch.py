@@ -14,9 +14,15 @@ construction per ensemble, padded to its maxima, packs
   * per-core arrays (`rates`, `inv_rates`, `core_mask`, `delta`) for the
     allocation scan and the calendar's durations.
 
-Every field is a tensor on the batch's device; the member axis is the
-instance list (no mesh padding in this port).  `expand_members` tiles it
-for refinement's candidates.  `BUILD_COUNT` counts constructions.
+Every field is a tensor on the batch's device.  With ``mesh=`` the member
+axis pads up to a multiple of the mesh's ``data`` size with fully masked
+members and the batch records the data-axis `NamedSharding`
+(`repro_torch.launch.mesh.data_sharding`): the batched stages (the LP,
+the allocation scan, the card calendars) then run each shard on its own
+device (`EnsembleBatch.shards`) and gather the result.  Members are
+independent, so a member's bits do not depend on the shard count.
+`expand_members` tiles the real members for refinement's candidates.
+`BUILD_COUNT` counts constructions.
 
 The streaming service's resident epochs run on a `SlotPoolBatch`: one
 batch whose coflow axis is a pool of slots and whose flow axis is an arena
@@ -38,6 +44,7 @@ from repro_torch.core.allocation import Allocation
 from repro_torch.core.coflow import CoflowInstance, flows_of
 from repro_torch.device import resolve_device
 from repro_torch.kernels.port_stats import port_stats
+from repro_torch.launch.mesh import Mesh, NamedSharding, Sharded, data_axis_size, data_sharding, place
 
 __all__ = [
     "EnsembleBatch", "AllocationBatch", "SlotPoolBatch", "build_ensemble_batch",
@@ -74,8 +81,10 @@ def _round_up(n: int, q: int) -> int:
 class EnsembleBatch:
     """One shape bucket of instances as padded device tensors.
 
-    Array fields have a leading member axis of size ``num_instances``;
-    the tuples record the true per-instance sizes used to unpad.
+    Array fields have a leading member axis of size ``pad_members``
+    (``num_instances``, or more under a sharding: rows past
+    ``num_instances`` are fully masked); the tuples record the true
+    per-instance sizes used to unpad.
     """
 
     # --- LP arrays (f32 + masks; `pack_lp_arrays` layout) ----------------
@@ -112,10 +121,15 @@ class EnsembleBatch:
     num_ports: tuple
     num_cores: tuple
     num_flows: tuple
+    sharding: NamedSharding | None = None
 
     @property
     def device(self) -> torch.device:
         return self.weights.device
+
+    @property
+    def pad_members(self) -> int:
+        return int(self.weights.shape[0])
 
     @property
     def pad_coflows(self) -> int:
@@ -143,9 +157,40 @@ class EnsembleBatch:
             coflow_mask=self.coflow_mask, port_mask=self.port_mask,
         )
 
+    def _tensor_fields(self) -> dict[str, torch.Tensor]:
+        return {
+            f.name: getattr(self, f.name)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)
+        }
+
+    # -- sharding ---------------------------------------------------------
+    def shards(self) -> list["EnsembleBatch"]:
+        """The batch split along its member axis under its sharding, one
+        unsharded `EnsembleBatch` a shard: shard ``i`` holds rows
+        ``[i Bp / n, (i + 1) Bp / n)`` on its device, the real members among
+        them first (a shard may hold none).  Without a sharding, the batch
+        itself."""
+        if self.sharding is None:
+            return [self]
+        placed = {k: place(v, self.sharding) for k, v in self._tensor_fields().items()}
+        n = self.sharding.num_shards
+        rows = self.pad_members // n
+        out = []
+        for i in range(n):
+            lo = i * rows
+            real = slice(lo, lo + max(0, min(self.num_instances - lo, rows)))
+            kw = {k: v.shards[i] if isinstance(v, Sharded) else v for k, v in placed.items()}
+            out.append(EnsembleBatch(
+                **kw, num_instances=real.stop - real.start,
+                num_coflows=self.num_coflows[real], num_ports=self.num_ports[real],
+                num_cores=self.num_cores[real], num_flows=self.num_flows[real],
+            ))
+        return out
+
     # -- ordering ---------------------------------------------------------
     def pad_orders(self, orders: Sequence[np.ndarray]) -> torch.Tensor:
-        """(B, Mp) padded order tensor from per-instance permutations
+        """(Bp, Mp) padded order tensor from per-instance permutations
         (padded coflow ids appended in id order)."""
         B, Mp = self.weights.shape
         out = np.tile(np.arange(Mp, dtype=np.int64), (B, 1))
@@ -155,7 +200,7 @@ class EnsembleBatch:
 
     # -- flows ------------------------------------------------------------
     def permute_flows(self, orders: torch.Tensor) -> torch.Tensor:
-        """(B, Fp) stable flow permutation realizing a global coflow order:
+        """(Bp, Fp) stable flow permutation realizing a global coflow order:
         coflows along the order, largest-first within each coflow."""
         B, Mp = orders.shape
         pos = torch.empty_like(orders)
@@ -168,44 +213,53 @@ class EnsembleBatch:
         return torch.argsort(key, dim=1, stable=True)
 
     def prefix_ends(self, orders: torch.Tensor) -> torch.Tensor:
-        """(B, Mp) running flow count after each order position."""
+        """(Bp, Mp) running flow count after each order position."""
         return torch.gather(self.flow_counts, 1, orders).cumsum(dim=1)
 
     # -- member expansion -------------------------------------------------
     def expand_members(
         self, reps: int
     ) -> tuple["EnsembleBatch", np.ndarray, np.ndarray]:
-        """Tile every member ``reps`` times along the member axis.
+        """Tile every real member ``reps`` times along the member axis.
 
         The expansion behind candidate-search refinement
         (`repro_torch.pipeline.refine`): expanded row ``b * reps + c`` is
         copy (candidate slot) ``c`` of instance ``b``, candidate-major
         within instance, so downstream stages see ``B * reps`` ordinary
-        members.  One `index_select` per tensor field on the batch's
-        device: a gather of this build, not a rebuild, so `port_stats`
-        does not run again.  Returns ``(expanded, instance_of,
-        candidate_of)``, the row maps of `expansion_maps`.
+        members.  Padding rows are not tiled; under a sharding the tail
+        pads to a multiple of the ``data`` size with copies of the last
+        (fully masked) row, and the sharding is kept.  One `index_select`
+        per tensor field on the batch's device: a gather of this build, not
+        a rebuild, so `port_stats` does not run again.  Returns
+        ``(expanded, instance_of, candidate_of)``, the row maps of
+        `expansion_maps`.
         """
         reps = int(reps)
         if reps < 1:
             raise ValueError(f"reps must be >= 1, got {reps}")
         B = self.num_instances
         idx = torch.arange(B, device=self.device).repeat_interleave(reps)
+        new_Bp = B * reps
+        if self.sharding is not None:
+            new_Bp = _round_up(max(new_Bp, 1), self.sharding.num_shards)
+        if new_Bp > B * reps:
+            # A remainder means B was rounded up too: row Bp - 1 is masked.
+            if self.pad_members <= B:
+                raise AssertionError("sharded batch without a masked padding row")
+            tail = torch.full((new_Bp - B * reps,), self.pad_members - 1, device=self.device)
+            idx = torch.cat([idx, tail])
 
         def rep(t: tuple) -> tuple:
             return tuple(x for x in t for _ in range(reps))
 
-        kw = {
-            f.name: getattr(self, f.name).index_select(0, idx)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)
-        }
+        kw = {k: v.index_select(0, idx) for k, v in self._tensor_fields().items()}
         kw.update(
             num_instances=B * reps,
             num_coflows=rep(self.num_coflows),
             num_ports=rep(self.num_ports),
             num_cores=rep(self.num_cores),
             num_flows=rep(self.num_flows),
+            sharding=self.sharding,
         )
         return EnsembleBatch(**kw), *expansion_maps(B, reps)
 
@@ -231,6 +285,15 @@ class AllocationBatch:
     tau_ports: torch.Tensor  # (B, Kp, Pp) f64 final prefix port counts
     prefix_lb: torch.Tensor  # (B, Mp) f64 per order position
     ends: torch.Tensor  # (B, Mp) i64 running flow count per order position
+
+    @staticmethod
+    def concat(parts: Sequence["AllocationBatch"], device: torch.device) -> "AllocationBatch":
+        """The shards' batches as one, member axis in shard order, on
+        ``device``."""
+        return AllocationBatch(**{
+            f.name: torch.cat([getattr(p, f.name).to(device) for p in parts])
+            for f in dataclasses.fields(AllocationBatch)
+        })
 
     def materialize(self, ensemble: EnsembleBatch) -> list[Allocation]:
         """Per-instance `Allocation`s on the host -- field for field what
@@ -297,23 +360,32 @@ def build_ensemble_batch(
     pad_ports: int | None = None,
     pad_flows: int | None = None,
     pad_cores: int | None = None,
+    mesh: Mesh | None = None,
     warm_start_orders: Sequence[np.ndarray | None] | None = None,
     with_lp_arrays: bool = True,
 ) -> EnsembleBatch:
     """Build the padded tensors of one ensemble -- once -- on ``device``.
 
     ``pad_*`` default to the ensemble maxima; ``warm_start_orders`` seeds
-    the LP warm starts (`lp.pack_lp_arrays`).  ``with_lp_arrays=False``
-    leaves the LP solver's (B, Mp, Mp) warm starts and (B, Mp, Pp) port
-    statistics out (zero-width), keeping the masks: the mode of a caller
-    that solved its LP elsewhere.  The per-port statistics still run (the
-    `port_stats` kernel), since ``glb`` reads them.
+    the LP warm starts (`lp.pack_lp_arrays`).  With ``mesh`` the member
+    axis pads up to a multiple of the mesh's ``data`` size (fully masked
+    members) and the batch records the data-axis sharding its stages run
+    under.  ``with_lp_arrays=False`` leaves the LP solver's (B, Mp, Mp)
+    warm starts and (B, Mp, Pp) port statistics out (zero-width), keeping
+    the masks: the mode of a caller that solved its LP elsewhere.  The
+    per-port statistics still run (the `port_stats` kernel), since ``glb``
+    reads them.
     """
     global BUILD_COUNT
     BUILD_COUNT += 1
     device = resolve_device(device)
     instances = list(instances)
     B = len(instances)
+    sharding, Bp = None, B
+    if mesh is not None:
+        sharding = data_sharding(mesh)
+        sharding.devices()  # a card the host lacks raises here
+        Bp = max(_round_up(max(B, 1), data_axis_size(mesh)), B)
     Ms = tuple(inst.num_coflows for inst in instances)
     Ns = tuple(inst.num_ports for inst in instances)
     Ks = tuple(inst.num_cores for inst in instances)
@@ -326,19 +398,21 @@ def build_ensemble_batch(
     stats = lp_mod.instance_port_stats(instances, device)
     glbs = [lp_mod.global_lower_bound(i, s[0]) for i, s in zip(instances, stats)]
     if with_lp_arrays:
-        lp_arr = lp_mod._pack(instances, stats, glbs, Mp, Pp, device, warm_start_orders)
+        lp_arr = lp_mod._pack(
+            instances, stats, glbs, Mp, Pp, device, warm_start_orders, pad_members=Bp
+        )
     else:
-        coflow_mask = np.zeros((B, Mp), dtype=bool)
-        port_mask = np.zeros((B, Pp), dtype=bool)
+        coflow_mask = np.zeros((Bp, Mp), dtype=bool)
+        port_mask = np.zeros((Bp, Pp), dtype=bool)
         for b, inst in enumerate(instances):
             coflow_mask[b, : Ms[b]] = True
             port_mask[b, : 2 * Ns[b]] = True
         f32 = dict(dtype=torch.float32, device=device)
         lp_arr = dict(
-            Y0=torch.zeros((B, 0, 0), **f32), p_rho=torch.zeros((B, 0, 0), **f32),
-            p_tau=torch.zeros((B, 0, 0), **f32), weights=torch.zeros((B, 0), **f32),
-            releases=torch.zeros((B, 0), **f32), inv_R=torch.zeros(B, **f32),
-            delta_over_K=torch.zeros(B, **f32),
+            Y0=torch.zeros((Bp, 0, 0), **f32), p_rho=torch.zeros((Bp, 0, 0), **f32),
+            p_tau=torch.zeros((Bp, 0, 0), **f32), weights=torch.zeros((Bp, 0), **f32),
+            releases=torch.zeros((Bp, 0), **f32), inv_R=torch.zeros(Bp, **f32),
+            delta_over_K=torch.zeros(Bp, **f32),
             coflow_mask=torch.from_numpy(coflow_mask).to(device),
             port_mask=torch.from_numpy(port_mask).to(device),
         )
@@ -347,21 +421,21 @@ def build_ensemble_batch(
     Fs = tuple(s[0].shape[0] for s in seqs)
     Fp = pad_flows if pad_flows is not None else max(Fs, default=0)
 
-    weights = np.zeros((B, Mp))
-    releases = np.zeros((B, Mp))
-    glb = torch.zeros((B, Mp), dtype=torch.float64, device=device)
-    flow_coflow = np.zeros((B, Fp), dtype=np.int64)
-    flow_src = np.zeros((B, Fp), dtype=np.int64)
-    flow_dst = np.zeros((B, Fp), dtype=np.int64)
-    flow_pi = np.zeros((B, Fp), dtype=np.int64)
-    flow_pj = np.zeros((B, Fp), dtype=np.int64)
-    flow_size = np.zeros((B, Fp))
-    flow_valid = np.zeros((B, Fp), dtype=bool)
-    flow_counts = np.zeros((B, Mp), dtype=np.int64)
-    rates = np.ones((B, Kp))
-    inv_rates = np.full((B, Kp), PAD_LB)
-    core_mask = np.zeros((B, Kp), dtype=bool)
-    delta = np.zeros(B)
+    weights = np.zeros((Bp, Mp))
+    releases = np.zeros((Bp, Mp))
+    glb = torch.zeros((Bp, Mp), dtype=torch.float64, device=device)
+    flow_coflow = np.zeros((Bp, Fp), dtype=np.int64)
+    flow_src = np.zeros((Bp, Fp), dtype=np.int64)
+    flow_dst = np.zeros((Bp, Fp), dtype=np.int64)
+    flow_pi = np.zeros((Bp, Fp), dtype=np.int64)
+    flow_pj = np.zeros((Bp, Fp), dtype=np.int64)
+    flow_size = np.zeros((Bp, Fp))
+    flow_valid = np.zeros((Bp, Fp), dtype=bool)
+    flow_counts = np.zeros((Bp, Mp), dtype=np.int64)
+    rates = np.ones((Bp, Kp))
+    inv_rates = np.full((Bp, Kp), PAD_LB)
+    core_mask = np.zeros((Bp, Kp), dtype=bool)
+    delta = np.zeros(Bp)
     for b, inst in enumerate(instances):
         M, N, K, F = Ms[b], Ns[b], Ks[b], Fs[b]
         weights[b, :M] = inst.weights
@@ -397,7 +471,7 @@ def build_ensemble_batch(
         flow_counts=dev(flow_counts), rates=dev(rates),
         inv_rates=dev(inv_rates), core_mask=dev(core_mask), delta=dev(delta),
         num_instances=B, num_coflows=Ms, num_ports=Ns, num_cores=Ks,
-        num_flows=Fs,
+        num_flows=Fs, sharding=sharding,
     )
 
 
@@ -425,7 +499,7 @@ class SlotPoolBatch:
     """
 
     batch: EnsembleBatch
-    member: int  # the row the writes go to
+    member: int  # the row the writes go to (0; a sharded pool's others stay masked)
     flow_quantum: int
     flow_start: np.ndarray  # (S,) i64 arena offset per slot, -1 = free
     flow_cap: np.ndarray  # (S,) i64 extent capacity per slot
@@ -453,10 +527,13 @@ def build_slot_pool_batch(
     *,
     flow_quantum: int = 64,
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ) -> SlotPoolBatch:
     """An empty resident pool on ``device`` (one build, one `port_stats`
     launch): the `EnsembleBatch` of a zero-demand template of ``slots``
-    coflows, every slot then marked free."""
+    coflows, every slot then marked free.  With ``mesh`` the batch pads
+    its member axis to the ``data`` size as `build_ensemble_batch` does;
+    the slot writes go to member 0 and the padding rows stay masked."""
     if slots <= 0:
         raise ValueError(f"slots must be positive, got {slots}")
     if flow_quantum <= 0:
@@ -469,7 +546,7 @@ def build_slot_pool_batch(
         rates=rates.copy(),
         delta=float(delta),
     )
-    batch = build_ensemble_batch([template], device, pad_flows=flow_quantum)
+    batch = build_ensemble_batch([template], device, pad_flows=flow_quantum, mesh=mesh)
     batch.coflow_mask[0, :] = False  # every slot starts free
     batch.weights[0, :] = 0.0
     batch.lp_weights[0, :] = 0.0

@@ -22,8 +22,10 @@ stages have array forms and the backend is ``"batch"``, else one instance
 at a time through the pipeline's own host stages (`refine_sequential`),
 which ``require_batch=True`` refuses.  ``stage_cache`` shares the build,
 the orders and each later stage between pipelines run on the same
-(instances, lp_solutions).  The reference's ``mesh`` sharding is left
-for the launch tooling (ROADMAP item 10b).
+(instances, lp_solutions).  ``mesh`` shards the ensemble's member axis
+over the mesh's ``data`` axis (`repro_torch.pipeline.ensemble_batch`):
+the allocation scan, the card calendars and refinement run a shard on
+each device, bit-identical to the unsharded run.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from repro_torch.core.lp import LPSolution
 from repro_torch.core.scheduler import ScheduleResult, total_weighted_cct
 from repro_torch.core.validate import validate_schedule
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import Mesh, data_sharding
 from repro_torch.pipeline import stages as st
 from repro_torch.pipeline.ensemble_batch import EnsembleBatch, build_ensemble_batch
 from repro_torch.pipeline.refine import (
@@ -231,6 +234,7 @@ class Pipeline:
         stage_cache: dict | None = None,
         ensemble: EnsembleBatch | None = None,
         refine=None,
+        mesh: Mesh | None = None,
     ) -> list[ScheduleResult]:
         """Run a whole ensemble as one tensor pipeline on ``device``.
 
@@ -243,6 +247,13 @@ class Pipeline:
         (BvN and fluid stages keep none).  Each result's ``wall_time_s`` is
         its share of the batched allocation (and refinement) plus its own
         host schedule's time, or its share of the batched calendar.
+
+        ``mesh`` shards the member axis over the mesh's ``data`` axis
+        (the batch pads to a multiple of its size; the batch and the
+        per-instance results stay on ``device``): results are
+        bit-identical to the unsharded run.  A prebuilt or cached batch
+        carries its own sharding, which ``mesh=None`` inherits and another
+        ``mesh`` refuses.
 
         ``ensemble`` plugs in a prebuilt `EnsembleBatch` on ``device``.
         ``stage_cache``, one dict passed to every pipeline run on the same
@@ -277,11 +288,17 @@ class Pipeline:
         if ensemble is None and stage_cache is not None:
             ensemble = stage_cache.get(_ENSEMBLE_KEY)
         if ensemble is None:
-            ensemble = build_ensemble_batch(instances, device=device)
+            ensemble = build_ensemble_batch(instances, device=device, mesh=mesh)
         elif not _same_device(ensemble.device, device):
             raise ValueError(
                 f"the given EnsembleBatch lives on {ensemble.device}, the run "
                 f"on {device}"
+            )
+        elif mesh is not None and ensemble.sharding != data_sharding(mesh):
+            raise ValueError(
+                "run_batch(mesh=...) does not match the sharding of the cached or "
+                "given EnsembleBatch: pass the same mesh on every call sharing a "
+                "stage_cache (or a fresh cache)"
             )
         if stage_cache is not None:
             stage_cache.setdefault(_ENSEMBLE_KEY, ensemble)

@@ -204,8 +204,9 @@ def refine_batch_arrays(
 ) -> RefineOutcome:
     """Refine a whole ensemble's orders as one batched search.
 
-    ``orders`` is the (B, Mp) padded incumbent array (the order stage's
-    output, on the device or the host).  Each round fills
+    ``orders`` is the (Bp, Mp) padded incumbent array (the order stage's
+    output, on the device or the host).  The member-expanded batch keeps
+    the ensemble's sharding, so under a mesh both stages run sharded.  Each round fills
     ``spec.candidates`` rows per instance of the member-expanded batch and
     evaluates them in one pass: ``alloc_fn(expanded, orders) ->
     AllocationBatch`` and ``cct_fn(expanded, alloc) -> (B*k, Mp)`` CCTs,
@@ -245,7 +246,8 @@ def refine_batch_arrays(
     cur = np.zeros(B)
     evals = 0
     rounds_done = 0
-    exp_orders = np.tile(np.arange(Mp, dtype=np.int64), (B * k, 1))
+    # Padding rows of a sharded expansion keep identity orders.
+    exp_orders = np.tile(np.arange(Mp, dtype=np.int64), (expanded.pad_members, 1))
     cand_lists: list[list[np.ndarray]] = [[] for _ in range(B)]
     for rnd in range(spec.rounds):
         active = np.flatnonzero(~done)

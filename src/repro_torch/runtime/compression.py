@@ -13,10 +13,17 @@ a `torch.Generator` that draws each leaf's (rows, 512) noise in leaf
 order, or a list of one noise tensor per leaf.  The port cannot draw
 ``jax.random``'s numbers, so tests pass the reference's noise in.
 
-The port runs on one card, so `compressed_allreduce` is the quantize /
-dequantize round trip (what the reference computes under plain pjit) and
-takes no ``axis_name``.  The reference's ``use_kernel=`` flags have no
-counterpart: the tensors' device decides.
+`compressed_allreduce` without ``axis_name`` is the quantize / dequantize
+round trip (what the reference computes under plain pjit).  With
+``axis_name`` (a mesh axis, ``"data"``) it sums the int8 payloads over the
+process group `repro_torch.launch.mesh.init_distributed` brought up -- the
+world group -- as the reference's ``psum`` over the axis does: the int8
+leaves only, in int8, so a sum past 127 wraps (gloo wraps as ``jnp.int8``
+does: 100 + 100 = -56), while each rank's scales and ``n`` stay its own and
+dequantize the summed codes.  gloo sums host tensors, so a payload on a
+card goes through pinned host memory and back.  With no process group up
+it raises; it never falls back to one card.  The reference's
+``use_kernel=`` flags have no counterpart: the tensors' device decides.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from __future__ import annotations
 from typing import Any, Sequence
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree
 from repro_torch.kernels.quant import dequantize_flat, quantize_flat
@@ -74,15 +82,42 @@ def decompress_tree(payload: Any, like: Any) -> Any:
     )
 
 
+def _allreduce_int8(payload: Any, axis_name: str) -> Any:
+    """``payload`` with every int8 code tensor summed over the ranks of
+    ``axis_name``'s process group, in int8 (wrapping); scales and ``n``
+    untouched.  One collective for the whole tree: the codes go flat into
+    one buffer (pinned host memory where they lie on a card)."""
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            f"compressed_allreduce(axis_name={axis_name!r}): no process group is up; "
+            f"call repro_torch.launch.mesh.init_distributed first"
+        )
+    leaves = tree.leaves(payload)
+    codes = [q for q, _, _ in leaves]
+    if not codes:
+        return payload
+    flat = torch.cat([q.reshape(-1) for q in codes])
+    wire = flat
+    if flat.device.type == "cuda" and dist.get_backend() == "gloo":
+        wire = torch.empty(flat.shape, dtype=torch.int8, pin_memory=True)
+        wire.copy_(flat)
+    dist.all_reduce(wire, op=dist.ReduceOp.SUM)
+    if wire is not flat:
+        flat.copy_(wire)
+    out, start = [], 0
+    for q, s, n in leaves:
+        out.append((flat[start:start + q.numel()].view(q.shape), s, n))
+        start += q.numel()
+    return tree.unflatten(payload, out)
+
+
 def compressed_allreduce(
     grads: Any, errors: Any, noise: Noise, axis_name: str | None = None
 ) -> tuple[Any, Any]:
-    """int8 exchange with error feedback on one card: (restored grads,
-    new errors)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"compressed_allreduce: axis_name={axis_name!r}: the port runs on one "
-            f"card, with no cross-device reduction"
-        )
+    """int8 exchange with error feedback: (restored grads, new errors).
+    With ``axis_name`` the int8 payloads are summed over the process group
+    first (`_allreduce_int8`); without it, the round trip on one device."""
     payload, new_err = compress_tree(grads, errors, noise)
+    if axis_name is not None:
+        payload = _allreduce_int8(payload, axis_name)
     return decompress_tree(payload, grads), new_err

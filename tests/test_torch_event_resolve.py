@@ -265,7 +265,7 @@ def test_plan_dims_are_the_sources(cuda):
     for G, F, N in _PLAN_CASES:
         plans = [er.plan(G, F, N, sms) for sms in (1, 66, 132)] + _every_plan(G, F, N)
         for q in plans:
-            launch("event_resolve_dims", G, F, N, q.word, out)
+            launch("event_resolve_dims", G, F, N, q.word, out, device=torch.device("cuda"))
             assert tuple(out) == (q.grid, q.threads, q.smem), (G, F, N, q)
 
 

@@ -148,7 +148,7 @@ def test_pair_resolve_plan_dims_are_the_sources(cuda):
     out = (ctypes.c_longlong * 3)()
     for G, N in _PAIR_PLAN_CASES:
         for q in [pr.plan(G, N, sms) for sms in (1, 66, 132)] + pr.tilings(G, N):
-            launch("pair_resolve_dims", G, N, q.width, out)
+            launch("pair_resolve_dims", G, N, q.width, out, device=torch.device("cuda"))
             assert tuple(out) == (q.grid, q.threads, q.smem), (G, N, q)
 
 
@@ -318,7 +318,7 @@ def test_port_stats_plan_dims_are_the_sources(cuda):
     out = (ctypes.c_longlong * 3)()
     for M, N in _PS_PLAN_CASES:
         for q in [ps.plan(M, N, sms) for sms in (1, 66, 132)] + ps.tilings(M, N):
-            launch("port_stats_dims", M, N, q.word, out)
+            launch("port_stats_dims", M, N, q.word, out, device=torch.device("cuda"))
             assert tuple(out) == (q.grid, q.threads, q.smem), (M, N, q)
 
 
@@ -552,7 +552,8 @@ def test_lp_terms_plan_smem_is_the_sources(cuda):
     for B, M, P, sms in _PLAN_SWEEP:
         p = lt.plan(B, M, P, sms)
         got = ctypes.c_longlong(0)
-        launch("lp_terms_smem", M, p.rows, p.ports, p.groups, ctypes.byref(got))
+        launch("lp_terms_smem", M, p.rows, p.ports, p.groups, ctypes.byref(got),
+               device=torch.device("cuda"))
         assert got.value == p.smem, (B, M, P, sms)
 
 

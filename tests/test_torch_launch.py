@@ -216,7 +216,7 @@ def test_meshes():
         ("data", "model"), (1, 1), (torch.device("cpu"),))
     assert mesh_axis_sizes(multi) == {"pod": 2, "data": 16, "model": 16}
     assert data_axis_size(single) == 16 and data_axis_size(local) == 1
-    assert data_sharding(single) == ("data",)
+    assert data_sharding(single).spec == ("data",) and data_sharding(single).mesh is single
     x = place(np.arange(6.0).reshape(3, 2), data_sharding(local), device="cpu")
     assert x.device.type == "cpu" and x.shape == (3, 2)
     with pytest.raises(ValueError, match="rank"):
