@@ -315,11 +315,30 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` and runs:
    its own seed, equal to the int8 wrapping sum rank 0 computes from both
    payloads, with the exchange's seconds; a checkpoint restored onto the
    3-shard mesh with per-leaf f64 checksums equal to the saved state's;
-20. the ``kernels`` JSON line (the calendar kernels' and `port_stats`'
+20. the parameter partition (`phase_partition`): (a) gemma3-1b's
+   full-width f32 parameters placed by `param_sharding` in ``tp`` and
+   ``fsdp`` on ``Mesh(("data", "model"), (2, 2), (cuda:0,) * 4)``, every
+   block its spec's shard shape, every gather bit for bit, the bytes each
+   mesh device holds logged, and the first two layers checkpointed and
+   restored onto the mesh under either mode's specs bit for bit; (b) on a one-rank `DeviceMesh` (1, 1) over
+   ``cuda:0`` (an NCCL group of one), phase 6's gemma3-1b at full width
+   (4 slots, a 600-token prompt into a 617-position cache, 3 decode ticks)
+   and one xlstm-1.3b decode tick with parameters, tokens and caches as
+   DTensors: tokens and logits bit-identical to the plain path, and
+   `flash_attention` / `mlstm_chunk` launched exactly as often; (c) the
+   production cells partitioned (``"spmd"``) on ``pod16x16`` and
+   ``pod2x16x16``: gemma3-1b's train_4k, prefill_32k and decode_32k and
+   xlstm-1.3b's train_4k (cut in depth to one whole unit of its published
+   layer_unit, 7 mLSTM and 1 sLSTM layers of 48, so that the phase stays
+   short), each row logged beside the even split of the
+   cell's whole count, collective bytes gated > 0, and the local (1, 1)
+   cell gated equal to phase 18's; (d) every group torn down before the
+   next part;
+21. the ``kernels`` JSON line (the calendar kernels' and `port_stats`'
    launches summed over phases 3, 8, 10, 11, 12 and 19, `lp_terms_batch`'s
-   over phases 3, 11, 12 and 19, `mlstm_chunk`'s over phases 7 and 13,
+   over phases 3, 11, 12 and 19, `mlstm_chunk`'s over phases 7, 13 and 20,
    `quantize`'s and `dequantize`'s over 8, 13 and 19, `flash_attention`'s
-   over 6, 14-17 and 18), then ``{"ok": true, "device": ...}`` last.
+   over 6, 14-17, 18 and 20), then ``{"ok": true, "device": ...}`` last.
 
 Any failed check raises, so the script exits non-zero and prints no
 result.  It exits non-zero as well without a CUDA device.
@@ -4133,6 +4152,7 @@ def phase_cross(torch):
 LAUNCH_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 LAUNCH_TRAIN = (4, 1024)  # batch x tokens of phase 8's step
 LAUNCH_RUNS = 3  # timed training steps of each variant (after one warm-up)
+LAUNCH_ROWS: dict = {}  # phase 18's run_cell rows by (shape, mesh)
 
 
 def count_step(torch, step, args):
@@ -4185,7 +4205,7 @@ def phase_launch(torch):
     t0 = time.perf_counter()
     for mesh in ("local", "single"):
         for shape in LAUNCH_SHAPES:
-            r = dryrun.run_cell(cfg.name, shape, mesh)
+            r = LAUNCH_ROWS[(shape, mesh)] = dryrun.run_cell(cfg.name, shape, mesh)
             m, c, rf = r["memory"], r["cost"], r["roofline"]
             check(c["device_flops"] > 0 and m["argument_bytes"] > 0 and r["model_flops"] > 0,
                   f"dry-run {shape} {mesh}: {r}")
@@ -4556,6 +4576,274 @@ def phase_mesh(torch, paper, sols, ours_results):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the parameter partition
+# ---------------------------------------------------------------------------
+
+PARTITION_TICKS = 3
+# (arch, shape, config overrides): xlstm-1.3b cut in depth to one whole
+# unit of its published 7:1 layer_unit (7 mLSTM and 1 sLSTM layers of 48,
+# published widths and sequence), so that its three counts fit the phase.
+PARTITION_CELLS = (("gemma3-1b", "train_4k", None), ("gemma3-1b", "prefill_32k", None),
+                   ("gemma3-1b", "decode_32k", None),
+                   ("xlstm-1.3b", "train_4k", {"num_layers": 8}))
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal dtype, shape and bits."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def partition_placement(torch):
+    """Phase 20 (a): gemma3-1b's f32 parameters placed on four mesh devices
+    of the one card, in both modes."""
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import Mesh, NamedSharding, Sharded, gather, place
+    from repro_torch.launch.sharding import ShardingRules, param_sharding
+    from repro_torch.launch.specs import SDS
+    from repro_torch.models.model import build_model
+
+    cfg = get_arch("gemma3-1b")
+    params = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0), masters=True)
+    mesh = Mesh(("data", "model"), (2, 2), (torch.device("cuda", 0),) * 4)
+    rules = ShardingRules(mesh)
+    whole = sum(t.numel() * t.element_size() for t in tree.leaves(params))
+    for mode in ("tp", "fsdp"):
+        t0 = time.perf_counter()
+        specs = param_sharding(params, rules, mode=mode, cfg=cfg)
+        held, split = [0] * mesh.size, 0
+        for path, leaf, spec in zip(tree.paths(params), tree.leaves(params),
+                                    tree.leaves(specs)):
+            placed = place(leaf, NamedSharding(mesh, spec))
+            blocks = placed.blocks if isinstance(placed, Sharded) else (placed,) * mesh.size
+            want = SDS(leaf, spec).shard_shape(rules.sizes)
+            check(all(tuple(b.shape) == want for b in blocks),
+                  f"partition {mode} {path}: blocks {[tuple(b.shape) for b in blocks]}, "
+                  f"spec {spec} wants {want}")
+            check(same_bits(torch, gather(placed), leaf), f"partition {mode} {path}: gather")
+            split += isinstance(placed, Sharded)
+            for i, b in enumerate(blocks):
+                held[i] += b.numel() * b.element_size()
+            del placed, blocks
+        torch.cuda.synchronize()
+        log(f"partition placement {cfg.name} {mode} on mesh (data 2, model 2) of cuda:0: "
+            f"{split} of {len(tree.leaves(params))} leaves split, every block its spec's "
+            f"shard shape and every gather bit for bit; GB held by mesh device "
+            f"{[round(h / 1e9, 6) for h in held]} of {whole / 1e9:.6f} GB whole "
+            f"({time.perf_counter() - t0:.2f} s)")
+    # A checkpoint of the first two layers restored onto the mesh under
+    # either mode's specs.
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+
+    state = {"layers": params["layers"][:2]}
+    root = tempfile.mkdtemp(prefix="chip_smoke_partition_ckpt_")
+    try:
+        ck = Checkpointer(root, async_save=False)
+        ck.save(1, state)
+        for mode in ("tp", "fsdp"):
+            specs = param_sharding(params, rules, mode=mode, cfg=cfg)
+            shardings = {"layers": tree.map_leaves(lambda sp: NamedSharding(mesh, sp),
+                                                   {"layers": specs["layers"][:2]})["layers"]}
+            t0 = time.perf_counter()
+            got = ck.restore(1, like=state, shardings=shardings)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            pairs = list(zip(tree.leaves(got), tree.leaves(state)))
+            check(all(same_bits(torch, gather(a), b) for a, b in pairs),
+                  f"partition restore {mode}: a leaf differs")
+            log(f"partition restore {cfg.name} layers 0-1 ({len(pairs)} leaves, "
+                f"{sum(b.numel() * 4 for _, b in pairs) / 1e9:.6f} GB) onto the (2, 2) mesh "
+                f"under {mode} specs: bit for bit, {seconds:.3f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del params, state
+    torch.cuda.empty_cache()
+
+
+def partition_one_rank(torch):
+    """Phase 20 (b): the full-width serve and an xLSTM decode tick on
+    DTensors over a one-rank mesh of the card, against the plain path."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from torch.utils._pytree import tree_leaves
+
+    from repro_torch import tree
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import Mesh, device_mesh, placements
+    from repro_torch.launch.sharding import ShardingRules, activate, param_sharding
+    from repro_torch.launch.specs import cache_specs, dtensors
+    from repro_torch.models.model import build_model
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        one = Mesh(("data", "model"), (1, 1), (torch.device("cuda", 0),))
+        dm = device_mesh(one)
+        rules = ShardingRules(one)
+
+        def as_dtensors(params, cfg):
+            specs = param_sharding(params, rules, cfg=cfg)
+            return tree.map_leaves(lambda t, s: DTensor.from_local(
+                t, dm, placements(s, one), run_check=False), params, specs)
+
+        def tokens_of(t, dt):
+            if not dt:
+                return t
+            return DTensor.from_local(t, dm, placements((rules.mesh_axes_for("batch", len(t)),
+                                                         None), one), run_check=False)
+
+        def whole(x):
+            return x.full_tensor() if isinstance(x, DTensor) else x
+
+        cfg = get_arch("gemma3-1b")
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device="cuda").manual_seed(SERVE["seed"]))
+        dparams = as_dtensors(params, cfg)
+        slots, plen = SERVE["slots"], SERVE["prompt_len"]
+        ctx = plen + SERVE["max_new"] + 1
+        prompt = torch.randint(0, cfg.vocab_size, (slots, plen),
+                               generator=torch.Generator().manual_seed(7)).cuda()
+
+        def gemma_run(p, dt):
+            cache = (dtensors(cache_specs(model, rules, slots, ctx), dm, "cuda") if dt
+                     else model.init_cache(slots, ctx))
+            logits, cache = model.forward(p, {"tokens": tokens_of(prompt, dt)}, cache, 0)
+            out = [whole(logits)[:, -1]]
+            for t in range(PARTITION_TICKS):
+                nxt = out[-1].argmax(dim=-1).to(torch.int32)[:, None]
+                logits, cache = model.decode_step(p, cache, {"tokens": tokens_of(nxt, dt)},
+                                                  plen + t)
+                out.append(whole(logits))
+            return out
+
+        xcfg = get_arch("xlstm-1.3b")
+        xmodel = build_model(xcfg)
+        xparams = xmodel.init(torch.Generator(device="cuda").manual_seed(SERVE["seed"]))
+        xdparams = as_dtensors(xparams, xcfg)
+        xtok = torch.randint(0, xcfg.vocab_size, (slots, 1),
+                             generator=torch.Generator().manual_seed(8)).cuda()
+
+        def xlstm_tick(p, dt):
+            cache = (dtensors(cache_specs(xmodel, rules, slots, 1), dm, "cuda") if dt
+                     else xmodel.init_cache(slots, 1))
+            logits, cache = xmodel.decode_step(p, cache, {"tokens": tokens_of(xtok, dt)}, 0)
+            return [whole(logits)] + [whole(t) for t in tree_leaves(cache)]
+
+        results, launches, seconds = {}, {}, {}
+        with torch.no_grad(), activate(rules, dm), implicit_replication():
+            for dt in (False, True):
+                for name, fn, p in (("gemma3", gemma_run, dparams if dt else params),
+                                    ("xlstm", xlstm_tick, xdparams if dt else xparams)):
+                    torch.cuda.synchronize()
+                    reset_counts()
+                    t0 = time.perf_counter()
+                    results[name, dt] = fn(p, dt)
+                    torch.cuda.synchronize()
+                    seconds[name, dt] = time.perf_counter() - t0
+                    launches[name, dt] = read_counts()
+        for name in ("gemma3", "xlstm"):
+            plain, dten = results[name, False], results[name, True]
+            check(len(plain) == len(dten) and all(same_bits(torch, a, b)
+                                                  for a, b in zip(plain, dten)),
+                  f"partition one rank {name}: DTensor outputs differ from the plain path")
+            check(launches[name, False] == launches[name, True],
+                  f"partition one rank {name}: launches {launches[name, True]} on DTensors, "
+                  f"{launches[name, False]} plain")
+        check(launches["gemma3", True]["flash_attention"]
+              == (1 + PARTITION_TICKS) * cfg.num_layers,
+              f"partition one rank: flash_attention {launches['gemma3', True]}")
+        check(launches["xlstm", True]["mlstm_chunk"] == xcfg.layer_kinds.count("mlstm"),
+              f"partition one rank: mlstm_chunk {launches['xlstm', True]}")
+        tokens = [int(x) for x in results["gemma3", True][-1].argmax(dim=-1)]
+        log(f"partition one rank (DeviceMesh (1, 1) over cuda:0, NCCL): gemma3-1b {slots} "
+            f"slots, {plen}-token prompt, {PARTITION_TICKS} decode ticks, and one xlstm-1.3b "
+            f"decode tick on DTensors: tokens and logits bit-identical to the plain path "
+            f"(last tick's tokens {tokens}); launches {json.dumps(launches['gemma3', True])} and "
+            f"{json.dumps(launches['xlstm', True])}, as plain; host seconds gemma3 plain "
+            f"{seconds['gemma3', False]:.3f}, DTensor {seconds['gemma3', True]:.3f}, xlstm "
+            f"plain {seconds['xlstm', False]:.3f}, DTensor {seconds['xlstm', True]:.3f} on {CARD}")
+        counts = {k: launches["gemma3", True][k] + launches["xlstm", True][k]
+                  for k in launches["gemma3", True]}
+        del params, dparams, xparams, xdparams, results
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def partition_cells(torch):
+    """Phase 20 (c): the production cells partitioned, beside the even split
+    of each cell's whole count."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    check(not dist.is_initialized(), "partition: a process group is still up")
+    wholes = {}
+    for arch, shape, over in PARTITION_CELLS:
+        if arch == "gemma3-1b" and (shape, "local") in LAUNCH_ROWS:
+            wholes[arch, shape] = LAUNCH_ROWS[(shape, "local")]
+        else:
+            wholes[arch, shape] = dryrun.run_cell(arch, shape, "local", cfg_overrides=over)
+    again = dryrun.run_cell("gemma3-1b", "decode_32k", "local")
+    first = LAUNCH_ROWS[("decode_32k", "local")]
+    check(again["partition"] == "whole" and again["cost"] == first["cost"]
+          and again["memory"] == first["memory"],
+          "partition: the local (1, 1) cell differs from phase 18's")
+    for mesh in ("single", "multi"):
+        for arch, shape, over in PARTITION_CELLS:
+            r = dryrun.run_cell(arch, shape, mesh, cfg_overrides=over)
+            w = wholes[arch, shape]
+            chips = r["chips"]
+            c, m, coll = r["cost"], r["memory"], r["collectives"]
+            check(r["partition"] == "spmd", f"partition {arch} {shape} {mesh}: {r['partition']}")
+            check(coll["total"] > 0, f"partition {arch} {shape} {mesh}: no collective bytes")
+            check(c["matmul_flops"] >= w["cost"]["matmul_flops"] / chips * (1 - 1e-9),
+                  f"partition {arch} {shape} {mesh}: products below the even split")
+            cut = f", cut to {over}" if over else ""
+            log(f"partition {arch} {shape}{cut} {r['mesh']} ({chips} chips, {r['param_mode']}, "
+                f"{r['num_microbatches']} microbatches, traced in {r['trace_s']} s): per device "
+                f"{c['device_flops']:.6g} flops ({c['matmul_flops']:.6g} in products), "
+                f"{c['device_bytes_accessed']:.6g} bytes, temporaries "
+                f"{m['temp_bytes'] / 1e9:.6f} GB; even split of the whole count "
+                f"{w['cost']['device_flops'] / chips:.6g} flops "
+                f"({w['cost']['matmul_flops'] / chips:.6g} in products), "
+                f"{w['cost']['device_bytes_accessed'] / chips:.6g} bytes, temporaries "
+                f"{w['memory']['temp_bytes'] / chips / 1e9:.6f} GB; collective bytes "
+                f"{json.dumps(coll)}; roofline compute {r['roofline']['compute_s']:.6g} s, "
+                f"memory {r['roofline']['memory_s']:.6g} s, collective "
+                f"{r['roofline']['collective_s']:.6g} s -> {r['roofline']['dominant']}; "
+                f"MODEL_FLOPS / counted {r['useful_flops_ratio']:.4f} (even split "
+                f"{w['useful_flops_ratio']:.4f})")
+
+
+def phase_partition(torch):
+    """Phase 20: placement at full width, the DTensor path on a one-rank
+    mesh of the card, the production cells partitioned.  Returns the
+    kernel launches of the DTensor path."""
+    t0 = time.perf_counter()
+    partition_placement(torch)
+    log(f"partition: placement {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    counts = partition_one_rank(torch)
+    log(f"partition: one-rank DTensor path {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    partition_cells(torch)
+    log(f"partition: production cells {time.perf_counter() - t0:.2f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -4733,14 +5021,20 @@ def main() -> int:
     mesh_counts = phase_mesh(torch, paper, sols, paper_results["greedy"])
     lap("phase 19 (mesh sharding)")
 
-    # Phase 20: the kernels line (each kernel's launches on its main paths:
+    # Phase 20: the parameter partition (placement, the DTensor path on a
+    # one-rank mesh, the production cells partitioned).
+    partition_counts = phase_partition(torch)
+    lap("phase 20 (parameter partition)")
+
+    # Phase 21: the kernels line (each kernel's launches on its main paths:
     # the calendar kernels' and port_stats' grow by the planner's run in
     # phase 8, by ours_ls's runs in phase 10, by the streams of phase 11,
     # by the sweeps of phase 12 and by the sharded runs of phase 19,
     # lp_terms_batch's by the streams', the sweeps' and the sharded LPs,
     # mlstm_chunk's by phase 13's training, quantize's and dequantize's by
     # it and by phase 19's ranks, and flash_attention's by the serves of
-    # phases 14-17 and the counted steps of phase 18), then the result.
+    # phases 14-17, the counted steps of phase 18 and phase 20's DTensor
+    # serve, mlstm_chunk's by phase 20's tick), then the result.
     for name in ("pair_resolve", "port_stats"):
         counts[name] += (train_counts[name] + sum(c[name] for c in refine_counts.values())
                          + stream_counts[name] + fabric_counts[name] + mesh_counts[name])
@@ -4754,8 +5048,10 @@ def main() -> int:
     counts["lp_terms"] = single_counts["lp_terms"] + fabric_counts["lp_terms"]
     counts["event_resolve"] = flow_counts["event_resolve"]
     counts["flash_attention"] = sum(c["flash_attention"] for c in (
-        serve_counts, rglru_counts, mla_counts, moe_counts, cross_counts, launch_counts))
-    counts["mlstm_chunk"] = xlstm_counts["mlstm_chunk"] + xtrain_counts["mlstm_chunk"]
+        serve_counts, rglru_counts, mla_counts, moe_counts, cross_counts, launch_counts,
+        partition_counts))
+    counts["mlstm_chunk"] = (xlstm_counts["mlstm_chunk"] + xtrain_counts["mlstm_chunk"]
+                             + partition_counts["mlstm_chunk"])
     for name in ("quantize", "dequantize"):
         counts[name] = train_counts[name] + xtrain_counts[name] + mesh_counts[name]
     for r in rows:

@@ -17,11 +17,12 @@ goes on.  Leaves are tensors, NumPy arrays or Python numbers; a tensor of
 a dtype NumPy lacks (bf16) raises `TypeError` (the trainer saves f32
 masters and moments only).  `restore` casts each leaf to the dtype of the
 matching leaf of ``like`` and places it on that leaf's device, on
-``device=`` when given, or under ``shardings=`` as the reference does: a
-tree like ``like`` of `repro_torch.launch.mesh.NamedSharding`s, each
+``device=`` when given, or under ``shardings=`` as the reference's
+``jax.device_put`` does: a tree like ``like`` of
+`repro_torch.launch.mesh.NamedSharding`s of any partition spec, each
 tensor leaf placed with `repro_torch.launch.mesh.place` (a `Sharded` value
-over the mesh's devices, or a tensor where the spec is replicated or one
-device holds it), so a checkpoint restores onto a mesh of any size.
+with a block per mesh device, or a tensor where the spec splits nothing),
+so a checkpoint restores onto a mesh of any size and layout.
 """
 
 from __future__ import annotations

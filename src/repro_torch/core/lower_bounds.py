@@ -1,5 +1,8 @@
-"""Prefix port statistics for the certificate (NumPy copy of the part of
-`repro.core.lower_bounds` that `repro_torch.core.theory.certify` reaches).
+"""Lower bounds for K-core OCS coflow scheduling (paper Sec. IV-A; NumPy
+copy of `repro.core.lower_bounds`).
+
+Single-core lower bound (Eq. 1 / Lemma 1): for traffic D on core k,
+    T^k_LB(D) = max_p ( rho_p / r^k + tau_p * delta ).
 
 Prefix statistics use tau with multiplicity (DESIGN.md §1): the prefix
 reconfiguration count on a port is the *sum over coflows* of per-coflow
@@ -13,7 +16,29 @@ import numpy as np
 
 from repro_torch.core.coflow import CoflowInstance, port_stats
 
-__all__ = ["prefix_port_stats"]
+__all__ = [
+    "single_core_lb",
+    "single_core_lb_ports",
+    "prefix_port_stats",
+    "allocation_upper_bound_rhs",
+]
+
+
+def single_core_lb_ports(
+    rho_ports: np.ndarray, tau_ports: np.ndarray, rate: float, delta: float
+) -> np.ndarray:
+    """Per-port terms L_p = rho_p / r + tau_p * delta (any leading batch dims)."""
+    return rho_ports / rate + tau_ports * delta
+
+
+def single_core_lb(
+    rho_ports: np.ndarray, tau_ports: np.ndarray, rate: float, delta: float
+) -> float:
+    """T^k_LB = max_p (rho_p / r^k + tau_p * delta)  (Eq. 1).
+
+    Accepts (2N,) port vectors for a single core.  Zero matrices give 0.
+    """
+    return float(np.max(single_core_lb_ports(rho_ports, tau_ports, rate, delta)))
 
 
 def prefix_port_stats(
@@ -28,3 +53,11 @@ def prefix_port_stats(
     rho_o = rho[order]
     tau_o = tau[order]
     return np.cumsum(rho_o, axis=0), np.cumsum(tau_o, axis=0)
+
+
+def allocation_upper_bound_rhs(
+    instance: CoflowInstance, rho_prefix_max: np.ndarray, tau_prefix_max: np.ndarray
+) -> np.ndarray:
+    """RHS of Lemma 4: rho_{1:m}/r_max + tau_{1:m} * delta, shape (M,)."""
+    r_max = float(instance.rates.max())
+    return rho_prefix_max / r_max + tau_prefix_max * instance.delta

@@ -652,7 +652,7 @@ def solve_subgradient_batch_arrays(
         best_Y, T_best, best_F = results[0]
     else:
         best_Y, T_best, best_F = (
-            Sharded(tuple(r[j] for r in results), sharding) for j in range(3)
+            Sharded.from_shards(tuple(r[j] for r in results), sharding) for j in range(3)
         )
     return LPSolutionBatch(
         completion=T_best, y=best_Y, objective=best_F,

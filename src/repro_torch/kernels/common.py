@@ -17,6 +17,11 @@ operation count (`repro_torch.launch.op_cost.OpCounter`): the kernel's
 runs (the twin on the host, the launch's buffers on the card, the meta
 route's empty outputs) are hidden from the count, so that a step counts the
 same on every device.
+
+`on_local_blocks` is how a DTensor operand (the dry-run's partition, or a
+parameter tree placed on a `DeviceMesh`) enters a kernel wrapper: through
+`torch.distributed.tensor.experimental.local_map`, each device running the
+wrapper on its own blocks.
 """
 
 from __future__ import annotations
@@ -34,7 +39,7 @@ import torch
 
 __all__ = [
     "launch", "library", "library_path", "refuse_grad", "sm_count", "stream_of",
-    "kernel_work", "COST_SINKS", "BUILD_DIR",
+    "kernel_work", "COST_SINKS", "BUILD_DIR", "is_dtensor", "on_local_blocks",
 ]
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -211,3 +216,51 @@ def launch(name: str, *args, device: torch.device) -> None:
     if err:
         msg = lib.repro_cuda_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg} ({err})")
+
+
+_DTENSOR: list = []
+
+
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a `torch.distributed.tensor.DTensor` (a plain
+    tensor answers at once: this runs on every kernel call and layer)."""
+    if type(t) is torch.Tensor:
+        return False
+    if not _DTENSOR:
+        from torch.distributed.tensor import DTensor
+
+        _DTENSOR.append(DTensor)
+    return isinstance(t, _DTENSOR[0])
+
+
+def on_local_blocks(fn, args: tuple, n_out: int, keep: tuple[int, ...] = (0,)):
+    """``fn(*args)`` run on each device's blocks of DTensor operands
+    (`torch.distributed.tensor.experimental.local_map`), its ``n_out``
+    tensor results DTensors again.
+
+    The blocks: on each mesh axis, the operands' common ``Shard(d)`` with
+    ``d`` in ``keep`` (dimensions whose blocks ``fn`` computes apart, such
+    as batch and heads) stays; every other placement -- a sharded sequence
+    or feature dimension, a pending sum, operands that differ -- becomes
+    ``Replicate`` before the call (the collectives that takes are issued),
+    so a device that holds all of a replicated dimension repeats that
+    work.  Plain tensor operands count as replicated; ``None`` passes."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+    args = tuple(
+        DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        if isinstance(a, torch.Tensor) and not isinstance(a, DTensor) else a
+        for a in args)
+    tensors = [a for a in args if isinstance(a, DTensor)]
+    chosen = []
+    for i in range(mesh.ndim):
+        ps = {a.placements[i] for a in tensors}
+        p = ps.pop() if len(ps) == 1 else Replicate()
+        chosen.append(p if isinstance(p, Shard) and p.dim in keep else Replicate())
+    chosen = tuple(chosen)
+    in_pl = tuple(chosen if isinstance(a, DTensor) else None for a in args)
+    out_pl = (chosen,) * n_out
+    return local_map(fn, out_placements=out_pl, in_placements=in_pl, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)

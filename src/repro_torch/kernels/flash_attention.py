@@ -44,6 +44,13 @@ Where autograd records (training), the call goes through a
 `torch.autograd.Function` whose backward recomputes through the twin, as
 the reference's custom VJP does; the kernel never returns a result
 detached from operands that require grad.
+
+DTensor operands (a model partitioned over a `DeviceMesh`) enter through
+`kernels.common.on_local_blocks`: batch split as the operands split it,
+heads split where q, k and v split them alike (else replicated: each
+device repeats the attention of its batch), anything else -- a sequence-
+sharded cache -- gathered first; the call then runs (and `cost` counts)
+on each device's blocks.
 """
 
 from __future__ import annotations
@@ -54,7 +61,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.kernels.common import kernel_work, launch, refuse_grad, sm_count, stream_of
+from repro_torch.kernels.common import (
+    is_dtensor, kernel_work, launch, on_local_blocks, refuse_grad, sm_count, stream_of,
+)
 
 __all__ = [
     "flash_attention", "flash_attention_plain", "live_band", "live_pairs", "cost", "plan",
@@ -228,7 +237,12 @@ def flash_attention(
 ) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k/v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D) in q's
     dtype.  Differentiable where autograd records: the forward as below,
-    the backward through the plain twin (`_FlashAttention`)."""
+    the backward through the plain twin (`_FlashAttention`); DTensors on
+    each device's blocks (module doc)."""
+    if is_dtensor(q) or is_dtensor(k) or is_dtensor(v):
+        return on_local_blocks(
+            lambda q, k, v: flash_attention(q, k, v, causal, window, q_offset),
+            (q, k, v), 1, keep=(0, 1))
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, q_offset)

@@ -55,6 +55,12 @@ Where autograd records (training xLSTM), the call goes through a
 `torch.autograd.Function` whose backward recomputes through the twin, as
 `flash_attention`'s does; elsewhere (serving) the wrapper launches the
 kernel directly.
+
+DTensor operands (a model partitioned over a `DeviceMesh`) enter through
+`kernels.common.on_local_blocks`: the (batch x heads) axis split as the
+operands split it, anything else (the reference's v-dim state split over
+``model``) gathered first; the call then runs, and `cost` counts, on each
+device's blocks.
 """
 
 from __future__ import annotations
@@ -64,7 +70,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels.common import kernel_work, launch, stream_of
+from repro_torch.kernels.common import is_dtensor, kernel_work, launch, on_local_blocks, stream_of
 
 __all__ = [
     "mlstm_chunk", "mlstm_chunk_plain", "block_smem", "cost", "plan", "scratch_bytes",
@@ -230,7 +236,18 @@ def mlstm_chunk(q, k, v, log_f, log_i, state=None, chunk: int = 256):
     """q/k/v: (BH, S, Dh); log_f/log_i: (BH, S) f32; state: (S0, n0) f32 or
     None.  Returns (h in q's dtype, (S, n) f32).  Differentiable where
     autograd records: the forward as below, the backward through the plain
-    twin (`_MlstmChunk`)."""
+    twin (`_MlstmChunk`).  DTensor operands run on each device's blocks
+    of the (batch x heads) axis, anything else gathered first
+    (`kernels.common.on_local_blocks`)."""
+    if any(is_dtensor(t) for t in (q, k, v, log_f, log_i, *(state or ()))):
+        def local(q, k, v, log_f, log_i, s0, n0):
+            h, (s, n) = mlstm_chunk(q, k, v, log_f, log_i,
+                                    None if s0 is None else (s0, n0), chunk)
+            return h, s, n
+
+        s0, n0 = (None, None) if state is None else state
+        h, s, n = on_local_blocks(local, (q, k, v, log_f, log_i, s0, n0), 3)
+        return h, (s, n)
     C = _check(q, k, v, log_f, log_i, state, chunk)
     operands = (q, k, v, log_f, log_i, *(state or ()))
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):

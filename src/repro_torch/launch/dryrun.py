@@ -13,12 +13,24 @@ prefill or serve) on ``meta`` under the ATen operation counter
     high-water mark of the bytes it made (temporaries, outputs included);
   * the three roofline terms and the dominant one (`launch.roofline`).
 
-PyTorch partitions nothing here: on a mesh of more than one device the
-step's counts, temporaries and outputs are split evenly over the chips
-(the result says ``"partition": "even"``) and carry no collective term;
-ROADMAP item 10b (c) brings both.  A failure (a spec that does not divide,
-a kernel's check, a shape the model refuses) is a bug: the run fails
-loudly.
+A time loop (the sLSTM's) runs one step counted by its trip count, as
+the reference's analyzer multiplies a scan body (`op_cost.time_loop`; the
+count equals that of every step run).
+
+On a mesh of more than one chip the step is partitioned as the
+reference's GSPMD partitions it (``"partition": "spmd"``): a fake process
+group of the mesh's size comes up for the cell (PyTorch's ``"fake"``
+backend, which moves no data; torn down after the cell, also when it
+fails), parameters, optimizer state, batch and cache become ``meta``
+DTensors placed by their partition specs (`specs.dtensors`), the models'
+`sharding.constrain` hints redistribute at the reference's sites, and the
+counter sees what one device runs: operations, bytes and temporaries at
+local shapes, and the collectives DTensor issues, by kind, into the
+roofline's collective term.  On one chip nothing is partitioned
+(``"whole"``).  A cell refuses to run while a real process group is up.
+A failure (a spec that does not divide, a kernel's check, a shape the
+model refuses, an operation DTensor cannot partition) is a bug: the run
+fails loudly.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch gemma3-1b --shape decode_32k --mesh single
@@ -28,6 +40,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -39,13 +52,13 @@ from torch.utils._pytree import tree_leaves
 
 from repro_torch import tree
 from repro_torch.configs import SHAPES, ShapeSpec, get_arch
-from repro_torch.launch.mesh import Mesh, make_local_mesh, make_production_mesh
+from repro_torch.launch.mesh import Mesh, device_mesh, make_local_mesh, make_production_mesh
 from repro_torch.launch.op_cost import COLLECTIVE_OPS, OpCounter
 from repro_torch.launch.roofline import HW, model_flops, roofline_terms
 from repro_torch.launch.sharding import ShardingRules, activate
 from repro_torch.launch.specs import (
-    auto_mode, batch_specs, cache_specs, decode_batch_specs, device_bytes, opt_specs,
-    param_specs, spec_leaves, values,
+    auto_mode, batch_specs, cache_specs, decode_batch_specs, device_bytes, dtensors,
+    opt_specs, param_specs, spec_leaves, values,
 )
 from repro_torch.launch.steps import (
     accumulate_microbatch, default_optimizer, loss_and_grad, make_prefill_step,
@@ -53,7 +66,7 @@ from repro_torch.launch.steps import (
 )
 from repro_torch.models.model import build_model
 
-__all__ = ["run_cell", "mesh_name", "main"]
+__all__ = ["run_cell", "mesh_name", "main", "partitioned"]
 
 MESHES = ("local", "single", "multi")
 
@@ -74,6 +87,48 @@ def _make_mesh(mesh: str, device: str) -> Mesh:
     raise ValueError(f"mesh {mesh!r} not in {MESHES}")
 
 
+@contextlib.contextmanager
+def partitioned(mesh: Mesh):
+    """A fake process group of ``mesh.size`` ranks (this process rank 0)
+    and the `DeviceMesh` over it, for one cell; torn down on the way out,
+    also on failure.  Refuses while any process group is up: a fake
+    default group left behind would make every rank count of the process
+    (`mesh.process_shard`) read the mesh's size."""
+    import torch.distributed as dist
+
+    if not dist.is_available():
+        raise RuntimeError("dry-run partition: this PyTorch has no torch.distributed")
+    if dist.is_initialized():
+        raise RuntimeError("dry-run partition: a process group is already up")
+    try:
+        # Importing the module registers the "fake" backend.
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:
+        raise RuntimeError("dry-run partition: this PyTorch has no fake process group") from e
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=mesh.size)
+    try:
+        yield device_mesh(Mesh(mesh.axis_names, mesh.shape))
+    finally:
+        dist.destroy_process_group()
+
+
+def _micro(x, n: int):
+    """The first of ``n`` microbatches of ``x``'s rows: on a DTensor each
+    device's first ``1 / n`` of its own rows (the reference's microbatch
+    reshape of a data-sharded batch stays local), a DTensor again."""
+    from repro_torch.kernels.common import is_dtensor
+
+    if not is_dtensor(x):
+        return x[: len(x) // n]
+    from torch.distributed.tensor import DTensor
+
+    local = x.to_local()
+    shape = (len(x) // n, *x.shape[1:])
+    return DTensor.from_local(local[: len(local) // n], x.device_mesh, x.placements,
+                              run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
+
+
 def _train_step(model, optimizer, n: int, counter: OpCounter):
     """`steps.make_train_step`'s step as the dry-run counts it: every
     microbatch has the same shapes, so one runs under ``counter.repeat(n)``
@@ -84,13 +139,22 @@ def _train_step(model, optimizer, n: int, counter: OpCounter):
             loss, grads = loss_and_grad(model, params, batch)
         else:
             loss, grads = zero_accumulators(model, params)
-            micro = {k: v[: len(v) // n] for k, v in batch.items()}
+            micro = {k: _micro(v, n) for k, v in batch.items()}
             with counter.repeat(n):
                 loss = accumulate_microbatch(model, params, micro, loss, grads, n)
         params, opt_state, stats = optimizer.update(params, grads, opt_state)
         return params, opt_state, {"loss": loss, **stats}
 
     return step
+
+
+def _local_bytes(t: torch.Tensor) -> int:
+    """Bytes one device holds of ``t`` (a DTensor's local block)."""
+    from repro_torch.kernels.common import is_dtensor
+
+    if is_dtensor(t):
+        t = t.to_local()
+    return t.numel() * t.element_size()
 
 
 def run_cell(
@@ -137,7 +201,15 @@ def run_cell(
         else:
             num_microbatches = 1
     counter = OpCounter()
-    with activate(rules):
+    spmd = chips > 1
+    with contextlib.ExitStack() as stack:
+        dmesh = stack.enter_context(partitioned(the_mesh)) if spmd else None
+        stack.enter_context(activate(rules, dmesh))
+        if spmd:
+            from torch.distributed.tensor.experimental import implicit_replication
+
+            stack.enter_context(implicit_replication())
+        place = (lambda t: dtensors(t, dmesh)) if spmd else values
         if shape.kind == "train":
             opt = default_optimizer()
             if mixed_precision:
@@ -146,51 +218,49 @@ def run_cell(
                             dtype=torch.bfloat16 if mixed_precision else None)
             o = opt_specs(model, rules, opt, zero1=zero1, mode=mode)
             b = batch_specs(cfg, shape, rules, with_labels=True)
-            args = (p, o, b)
+            args, inputs = (p, o, b), (place(p), place(o), place(b))
             step = _train_step(model, opt, num_microbatches, counter)
-            opt_state = {**values(o), "count": 0}
             with counter:
-                out = step(values(p), opt_state, values(b))
+                out = step(inputs[0], {**inputs[1], "count": 0}, inputs[2])
         elif shape.kind == "prefill":
             p = param_specs(model, rules, mode=mode, dtype=torch.bfloat16)
             b = batch_specs(cfg, shape, rules, with_labels=False)
-            args = (p, b)
+            args, inputs = (p, b), (place(p), place(b))
             with counter:
-                out = make_prefill_step(model)(values(p), values(b))
+                out = make_prefill_step(model)(*inputs)
         else:  # decode: one new token at the last position of a full cache
             p = param_specs(model, rules, mode=mode, dtype=torch.bfloat16)
             cache = cache_specs(model, rules, shape.global_batch, shape.seq_len)
             b = decode_batch_specs(cfg, shape, rules)
-            args = (p, cache, b)
+            args, inputs = (p, cache, b), (place(p), place(cache), place(b))
             with counter:
-                out = make_serve_step(model)(values(p), values(cache), values(b),
-                                             shape.seq_len - 1)
-    trace_s = time.perf_counter() - t0
+                out = make_serve_step(model)(*inputs, shape.seq_len - 1)
+        trace_s = time.perf_counter() - t0
 
-    cost = counter.cost
-    held = {id(s.value): s for a in args for s in spec_leaves(a)}
-    outs = {id(t): t for t in tree_leaves(out) if isinstance(t, torch.Tensor)}
-    fresh = sum(t.numel() * t.element_size() for k, t in outs.items() if k not in held)
+        cost = counter.cost
+        held = {id(t): s for a, v in zip(args, inputs)
+                for s, t in zip(spec_leaves(a), tree_leaves(v))}
+        outs = {id(t): t for t in tree_leaves(out) if isinstance(t, torch.Tensor)}
+        fresh = sum(_local_bytes(t) for k, t in outs.items() if k not in held)
     argument_bytes = sum(device_bytes(a, rules) for a in args)
     alias_bytes = device_bytes([held[k] for k in outs if k in held], rules)
-    temp_bytes = cost.peak_bytes / chips
-    flops, nbytes = cost.flops / chips, cost.bytes / chips
-    coll = {k: 0.0 for k in COLLECTIVE_OPS}
-    coll["total"] = 0.0
+    coll = {k: cost.collective_bytes[k] for k in COLLECTIVE_OPS}
+    coll["total"] = cost.collective_total
+    flops, nbytes = cost.flops, cost.bytes
     terms = roofline_terms(flops, nbytes, coll["total"])
     mf = model_flops(cfg, shape)
-    peak = argument_bytes + temp_bytes
+    peak = argument_bytes + cost.peak_bytes
     return {
         "arch": arch,
         "shape": shape.name,
         "mesh": mesh_name(the_mesh),
         "chips": chips,
-        "partition": "even" if chips > 1 else "whole",
+        "partition": "spmd" if spmd else "whole",
         "trace_s": round(trace_s, 2),
         "memory": {
             "argument_bytes": argument_bytes,
-            "output_bytes": fresh / chips,
-            "temp_bytes": temp_bytes,
+            "output_bytes": fresh,
+            "temp_bytes": cost.peak_bytes,
             "alias_bytes": alias_bytes,
             "peak_estimate_bytes": peak,
             "hbm_bytes": hbm_bytes,
@@ -199,8 +269,8 @@ def run_cell(
         "cost": {
             "device_flops": flops,
             "device_bytes_accessed": nbytes,
-            "transcendentals": cost.transcendentals / chips,
-            "matmul_flops": cost.matmul_flops / chips,
+            "transcendentals": cost.transcendentals,
+            "matmul_flops": cost.matmul_flops,
             "aten_ops": cost.ops,
             "kernels": cost.summary()["kernels"],
         },

@@ -26,7 +26,26 @@ counted as it runs:
     (`repro_torch.kernels.common.kernel_work`), so a step counts the same
     on ``meta``, on the host and on the card.
 
-Collective bytes are zero on one card (ROADMAP item 10b (c) counts them).
+  * time loops -- a model's loop over positions (the sLSTM's) asks
+    `time_loop` how many steps to run: on ``meta`` under an active count
+    it runs one, counted by the trip count, as the reference's analyzer
+    multiplies a scan body; every step issues the same operations at the
+    same shapes, and what outlives a step goes to buffers made before the
+    loop, so the operations, bytes and high-water mark equal those of
+    every step run (``tests/test_torch_launch.py``);
+
+  * collectives -- on DTensors (the dry-run's partition over a fake
+    process group, `repro_torch.launch.dryrun`) the counter sees what one
+    device runs: DTensor's own shape propagation (global shapes, under
+    its `FakeTensorMode`) is neither counted nor tracked, a DTensor
+    operation is left to DTensor (the counter returns ``NotImplemented``)
+    and counted in the local operations DTensor issues, at local shapes,
+    and each ``_c10d_functional`` collective (and DTensor's
+    ``shard_dim_alltoall``) adds its local output's bytes
+    to `OpCost.collective_bytes` under the reference's kind names
+    (``hlo_cost.py``: all-reduce counted twice) and to the bytes.  The
+    high-water mark tracks the local tensors' storages (a DTensor is a
+    wrapper with none of its own).
 
     with OpCounter() as counter:
         step(...)
@@ -41,13 +60,13 @@ import weakref
 from collections import defaultdict
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import common
 
-__all__ = ["OpCost", "OpCounter", "COLLECTIVE_OPS"]
+__all__ = ["OpCost", "OpCounter", "COLLECTIVE_OPS", "time_loop"]
 
 COLLECTIVE_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
                   "collective-permute")
@@ -91,7 +110,21 @@ _PER_INPUT = {
 }
 # Operations that move no bytes besides views: allocation, aliasing.
 _NO_DATA = {"empty", "empty_like", "empty_strided", "new_empty", "new_empty_strided",
-            "_unsafe_view", "set_", "resize_", "_local_scalar_dense"}
+            "_unsafe_view", "set_", "resize_", "_local_scalar_dense", "wait_tensor",
+            "_wrap_tensor_autograd"}
+# The functional collectives DTensor issues, by the reference's kind names
+# (`repro.launch.hlo_cost`), and how many times their output's bytes count.
+_COLLECTIVES = {
+    "all_reduce": ("all-reduce", 2), "all_reduce_": ("all-reduce", 2),
+    "all_reduce_coalesced": ("all-reduce", 2),
+    "all_gather_into_tensor": ("all-gather", 1),
+    "all_gather_into_tensor_coalesced": ("all-gather", 1),
+    "all_gather_into_tensor_out": ("all-gather", 1),
+    "reduce_scatter_tensor": ("reduce-scatter", 1),
+    "reduce_scatter_tensor_coalesced": ("reduce-scatter", 1),
+    "all_to_all_single": ("all-to-all", 1),
+    "shard_dim_alltoall": ("all-to-all", 1),  # DTensor's own (namespace _dtensor)
+}
 
 
 @dataclasses.dataclass
@@ -100,7 +133,7 @@ class OpCost:
     products and ``transcendentals`` counted apart), bytes, the ATen
     operations issued, the high-water mark of live bytes it made
     (``peak_bytes``), per-ATen-op and per-kernel breakdowns, and collective
-    bytes by kind (zero on one card)."""
+    bytes by kind (zero on one card and for plain tensors)."""
 
     flops: float = 0.0
     bytes: float = 0.0
@@ -130,18 +163,49 @@ class OpCost:
         }
 
 
+def _propagating() -> bool:
+    """Whether DTensor's shape propagation is running: it runs each
+    operation at global shapes under a `FakeTensorMode`, work that no
+    device does."""
+    return torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None
+
+
 def _tensors(tree) -> list[torch.Tensor]:
-    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    """The tensors in an operation's arguments or results (nested tuples,
+    lists and dicts), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _tensors(x)]
+    if isinstance(tree, dict):
+        return [t for x in tree.values() for t in _tensors(x)]
+    return []
 
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+@contextlib.contextmanager
+def time_loop(steps: int, x: torch.Tensor):
+    """Around a loop of ``steps`` steps of the same shapes over ``x``:
+    yields how many to run.  Under an active count on ``meta`` (a DTensor's
+    local blocks included) one, counted ``steps`` times (`OpCounter.
+    repeat`); elsewhere all of them."""
+    local = x.to_local() if isinstance(x, DTensor) else x
+    if steps <= 1 or not common.COST_SINKS or local.device.type != "meta":
+        yield steps
+        return
+    with common.COST_SINKS[-1].repeat(steps):
+        yield 1
+
+
 class OpCounter(TorchDispatchMode):
     """A dispatch mode counting every ATen operation issued inside it into
     `cost` (module doc).  Kernel wrappers add their own costs through
-    `add_kernel` and hide their routes' operations under `paused`."""
+    `add_kernel` and hide their routes' operations under `paused`; a time
+    loop on ``meta`` runs one step counted by its trip count
+    (`time_loop`)."""
 
     def __init__(self):
         super().__init__()
@@ -207,6 +271,10 @@ class OpCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _propagating():
+            return func(*args, **kwargs)
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
         out = func(*args, **kwargs)
         outs = _tensors(out)
         ins = _tensors((args, kwargs))
@@ -220,22 +288,32 @@ class OpCounter(TorchDispatchMode):
     def _count(self, func, args, kwargs, out, ins, outs) -> None:
         cost = self.cost
         name = func._overloadpacket.__name__
+        n = self._times
+        if func.namespace in ("_c10d_functional", "_dtensor") and name in _COLLECTIVES:
+            kind, times = _COLLECTIVES[name]
+            nbytes = float(sum(_nbytes(t) for t in outs))
+            cost.collective_bytes[kind] += n * times * nbytes
+            cost.bytes += n * nbytes
+            cost.ops += n
+            entry = cost.by_op[name]
+            entry[0] += n
+            entry[2] += n * nbytes
+            return
         base = name[:-1] if name.endswith("_") and not name.startswith("_") else name
         flops = transcendentals = 0.0
         if func._overloadpacket in flop_registry:
             flops = float(flop_registry[func._overloadpacket](*args, **kwargs, out_val=out))
         elif base in _ELEMENTWISE:
             w, tr = _ELEMENTWISE[base]
-            n = sum(t.numel() for t in outs[:1])
-            flops, transcendentals = float(w * n), float(tr * n)
+            elems = sum(t.numel() for t in outs[:1])
+            flops, transcendentals = float(w * elems), float(tr * elems)
         elif base in _PER_INPUT:
             w, tr = _PER_INPUT[base]
-            n = max((t.numel() for t in ins), default=0)
-            flops, transcendentals = float(w * n), float(tr * n)
+            elems = max((t.numel() for t in ins), default=0)
+            flops, transcendentals = float(w * elems), float(tr * elems)
         nbytes = 0.0
         if not func.is_view and base not in _NO_DATA:
             nbytes = float(sum(_nbytes(t) for t in ins) + sum(_nbytes(t) for t in outs))
-        n = self._times
         if func._overloadpacket in flop_registry:
             cost.matmul_flops += n * flops
         cost.ops += n

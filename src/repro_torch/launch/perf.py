@@ -120,10 +120,14 @@ def main(argv=None) -> None:
         return (
             f"c={r['compute_s']:.4f} m={r['memory_s']:.4f} "
             f"n={r['collective_s']:.4f} bound={r['bound_s']:.4f} "
-            f"({r['dominant']}) peak={d['memory']['peak_estimate_bytes'] / 2**30:.2f}GiB"
+            f"({r['dominant']}) peak={d['memory']['peak_estimate_bytes'] / 2**30:.2f}GiB "
+            f"coll={d['collectives']['total'] / 1e9:.3f}GB [{d.get('partition', '?')}]"
         )
 
     if base:
+        if base.get("partition") != res["partition"]:
+            print(f"note: the baseline was partitioned {base.get('partition')!r}, "
+                  f"this run {res['partition']!r}")
         print(f"baseline: {fmt(base)}")
     print(f"{args.tag:>8s}: {fmt(res)}")
     if base:

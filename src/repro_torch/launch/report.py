@@ -33,8 +33,8 @@ def roofline_table(cells, mesh: str = "pod16x16") -> str:
     rows.sort(key=lambda c: (c["arch"], c["shape"]))
     out = [
         f"| arch | shape | peak GiB | {_fits_header(rows)} | compute s | memory s | "
-        "collective s | dominant | MODEL_FLOPS/counted | micro | mode |",
-        "|---|---|---:|---|---:|---:|---:|---|---:|---:|---|",
+        "collective s | collective GB | dominant | MODEL_FLOPS/counted | micro | mode |",
+        "|---|---|---:|---|---:|---:|---:|---:|---|---:|---:|---|",
     ]
     for c in rows:
         r = c["roofline"]
@@ -44,7 +44,8 @@ def roofline_table(cells, mesh: str = "pod16x16") -> str:
             f"{m['peak_estimate_bytes'] / 2**30:.2f} | "
             f"{'yes' if m.get('fits_hbm') else 'NO'} | "
             f"{r['compute_s']:.4f} | {r['memory_s']:.4f} | "
-            f"{r['collective_s']:.4f} | {r['dominant'].replace('_s', '')} | "
+            f"{r['collective_s']:.4f} | {c['collectives']['total'] / 1e9:.3f} | "
+            f"{r['dominant'].replace('_s', '')} | "
             f"{c['useful_flops_ratio']:.3f} | {c.get('num_microbatches', 1)} | "
             f"{c.get('param_mode', 'tp')} |"
         )

@@ -36,6 +36,7 @@ __all__ = [
     "auto_mode",
     "opt_specs",
     "cache_specs",
+    "dtensors",
 ]
 
 
@@ -85,6 +86,30 @@ def spec_leaves(node) -> list[SDS]:
     if isinstance(node, (list, tuple)):
         return [s for v in node for s in spec_leaves(v)]
     return [node] if isinstance(node, SDS) else []
+
+
+def dtensors(specs, device_mesh, device: str | torch.device = "meta"):
+    """A tree of `SDS` as DTensors on ``device_mesh`` (dicts, lists and
+    tuples kept): each the global shape and dtype of its `SDS`, placed by
+    its spec (`repro_torch.launch.mesh.placements`), its local tensor of
+    the spec's shard shape -- on ``meta`` (nothing allocated), or zeros on
+    ``device``."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.mesh import Mesh, placements
+
+    mesh = Mesh(tuple(device_mesh.mesh_dim_names), tuple(device_mesh.mesh.shape))
+    sizes = dict(zip(mesh.axis_names, mesh.shape))
+
+    def one(s):
+        if not isinstance(s, SDS):
+            return s
+        local = torch.zeros(s.shard_shape(sizes), dtype=s.dtype, device=device)
+        return DTensor.from_local(local, device_mesh, placements(s.spec, mesh),
+                                  run_check=False, shape=s.value.shape,
+                                  stride=s.value.stride())
+
+    return _map(one, specs)
 
 
 def values(specs):

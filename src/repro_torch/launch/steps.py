@@ -17,6 +17,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch import tree
+from repro_torch.kernels.common import is_dtensor
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamW, constant_schedule
 from repro_torch.runtime.compression import Noise, compressed_allreduce, init_error_feedback
@@ -73,7 +74,8 @@ def zero_accumulators(model: Model, params: Any) -> tuple[torch.Tensor, Any]:
     """The f32 zero loss and gradient tree the microbatches add into."""
     loss = torch.zeros((), dtype=torch.float32, device=model.device)
     grads = tree.map_leaves(
-        lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+        lambda p: torch.zeros_like(p, dtype=torch.float32) if is_dtensor(p)
+        else torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
     return loss, grads
 
 

@@ -24,8 +24,11 @@ Conventions, as in the reference:
     qk_rope_dim wide and its values kv_lora_rank, shapes the flash kernel
     does not take (one head dim in 16..256, v shaped like k).
 
-The reference's sharding hints (``launch.sharding.constrain``) have no
-counterpart: the port runs on one card.
+The reference's sharding hints (`repro_torch.launch.sharding.constrain`)
+sit at its sites, `chunked_attention`'s accumulators; head splits and
+merges go through `launch.sharding.fit_view` / `fit_reshape` and cache
+writes through `launch.sharding.like`.  All of them act on DTensors only
+(the dry-run's partition over a mesh) and leave plain tensors as they are.
 """
 
 from __future__ import annotations
@@ -35,7 +38,9 @@ import contextlib
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.common import is_dtensor
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.launch.sharding import constrain, fit_reshape, fit_view, like
 
 __all__ = [
     "dense_init", "embed_init", "rms_norm", "rope", "f32_products",
@@ -125,6 +130,12 @@ def _heads(q, k, v, scale):
     return qh, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
 
 
+def _carry(x):
+    """An accumulator of the online softmax under the reference's hint
+    (``_attn_constrain``: batch, kv heads, seq)."""
+    return constrain(x, *("batch", "kv_heads", None, "seq", None)[: x.dim()])
+
+
 def _chunked_fwd(q, k, v, q_positions, kv_valid, causal, window, ck):
     """Online-softmax forward over chunks of ``ck`` keys (Skv a multiple of
     it).  Returns out (B, Sq, Hq, Dv) in q's dtype and lse (B, Hkv, G, Sq),
@@ -134,9 +145,9 @@ def _chunked_fwd(q, k, v, q_positions, kv_valid, causal, window, ck):
     Hkv, Dv = v.shape[2], v.shape[3]
     G = Hq // Hkv
     qh, kh, vh = _heads(q, k, v, D**-0.5)
-    m = torch.full((B, Hkv, G, Sq), NEG_INF, device=q.device)
-    l = torch.zeros((B, Hkv, G, Sq), device=q.device)
-    acc = torch.zeros((B, Hkv, G, Sq, Dv), device=q.device)
+    m = _carry(torch.full((B, Hkv, G, Sq), NEG_INF, device=q.device))
+    l = _carry(torch.zeros((B, Hkv, G, Sq), device=q.device))
+    acc = _carry(torch.zeros((B, Hkv, G, Sq, Dv), device=q.device))
     with f32_products():
         for c in range(k.shape[1] // ck):
             k_c = kh[:, :, c * ck : (c + 1) * ck].to(torch.float32)
@@ -183,7 +194,7 @@ class _ChunkedAttention(torch.autograd.Function):
         o = out.reshape(B, Sq, Hkv, G, Dv).permute(0, 2, 3, 1, 4).to(torch.float32)
         delta = (do * o).sum(dim=-1)  # (B, Hkv, G, Sq)
         do = do.reshape(B, Hkv, G * Sq, Dv)
-        dq = torch.zeros_like(qh)
+        dq = _carry(torch.zeros_like(qh))
         dks, dvs = [], []
         with f32_products():
             for c in range(k.shape[1] // ck):
@@ -229,7 +240,52 @@ def chunked_attention(q, k, v, q_positions, kv_valid_len, causal: bool = True,
     else:
         kv_valid = torch.full((B,), float(kv_valid_len), device=q.device)
     q_positions = q_positions.to(q.device, torch.float32)
+    if is_dtensor(q):
+        return _chunked_local(q, k, v, q_positions, kv_valid, causal, window, ck)
     return _ChunkedAttention.apply(q, k, v, q_positions, kv_valid, causal, window, ck)
+
+
+def _chunked_local(q, k, v, q_positions, kv_valid, causal, window, ck):
+    """`_ChunkedAttention` on each device's blocks of DTensor operands
+    (`local_map`): on each mesh axis, the batch where q and k split it,
+    the queries' sequence where q splits it (keys whole: a query block
+    sees every key, its mask from its absolute positions, as the
+    reference's seq-sharded accumulators), heads where q and k split them
+    alike; every other placement replicated first."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    rep = [Replicate()] * mesh.ndim
+
+    def dt(t):
+        return t if is_dtensor(t) else DTensor.from_local(t, mesh, rep, run_check=False)
+
+    k, v, q_positions, kv_valid = (dt(t) for t in (k, v, q_positions, kv_valid))
+    pq, pk, ppos, pvalid = [], [], [], []
+    for i in range(mesh.ndim):
+        a, b = q.placements[i], k.placements[i]
+        if a == Shard(0) and b == Shard(0) and v.placements[i] == Shard(0):
+            pq.append(a), pk.append(a), ppos.append(a), pvalid.append(a)
+        elif a == Shard(1):
+            pq.append(a), pk.append(Replicate()), ppos.append(a), pvalid.append(Replicate())
+        elif a == Shard(2) and b == Shard(2) and v.placements[i] == Shard(2):
+            pq.append(a), pk.append(a), ppos.append(Replicate()), pvalid.append(Replicate())
+        else:
+            pq.append(Replicate()), pk.append(Replicate()), ppos.append(Replicate())
+            pvalid.append(Replicate())
+    pq, pk = tuple(pq), tuple(pk)
+
+    def local(q, k, v, q_positions, kv_valid):
+        return _ChunkedAttention.apply(q, k, v, q_positions, kv_valid, causal, window, ck)
+
+    # Keys and values whole beside a query block: their gradients sum
+    # over the query blocks.
+    gk = tuple(Partial() if a == Shard(1) else b for a, b in zip(pq, pk))
+    return local_map(local, out_placements=(pq,),
+                     in_placements=(pq, pk, pk, tuple(ppos), tuple(pvalid)),
+                     in_grad_placements=(pq, gk, gk, tuple(ppos), tuple(pvalid)), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v, q_positions, kv_valid)
 
 
 # --------------------------------------------------------------------------
@@ -263,19 +319,19 @@ def attn_apply(p, x, cfg, *, positions, cache=None, pos=0, window=None):
     H, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     h = rms_norm(x, p["norm"])
     cdt = h.dtype
-    q = rope((h @ p["wq"].to(cdt)).view(B, S, H, Dh), positions, cfg.rope_theta)
-    k = rope((h @ p["wk"].to(cdt)).view(B, S, Hkv, Dh), positions, cfg.rope_theta)
-    v = (h @ p["wv"].to(cdt)).view(B, S, Hkv, Dh)
+    q = rope(fit_view(h @ p["wq"].to(cdt), B, S, H, Dh), positions, cfg.rope_theta)
+    k = rope(fit_view(h @ p["wk"].to(cdt), B, S, Hkv, Dh), positions, cfg.rope_theta)
+    v = fit_view(h @ p["wv"].to(cdt), B, S, Hkv, Dh)
     if cache is not None:
-        cache["k"][:, pos : pos + S] = k
-        cache["v"][:, pos : pos + S] = v
+        cache["k"][:, pos : pos + S] = like(k, cache["k"])
+        cache["v"][:, pos : pos + S] = like(v, cache["v"])
         k, v = cache["k"], cache["v"]
     # (B, S, H, D) viewed as the kernel's (B, H, S, D): no copy either way.
     out = flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=True, window=window, q_offset=pos,
     ).transpose(1, 2)
-    out = out.reshape(B, S, H * Dh) @ p["wo"].to(cdt)
+    out = fit_reshape(out, B, S, H * Dh) @ p["wo"].to(cdt)
     return out.to(x.dtype), cache
 
 
@@ -320,7 +376,7 @@ def mla_apply(p, x, cfg, *, positions, cache=None, pos=0, window=None):
     dn, dv = cfg.qk_nope_dim, cfg.v_head_dim
     h = rms_norm(x, p["norm"])
     cdt = h.dtype
-    q = ((h @ p["q_down"].to(cdt)) @ p["q_up"].to(cdt)).view(B, S, H, -1)
+    q = fit_view((h @ p["q_down"].to(cdt)) @ p["q_up"].to(cdt), B, S, H, -1)
     q_nope = q[..., :dn]
     q_rope = rope(q[..., dn:], positions, cfg.rope_theta)
     kv = h @ p["kv_down"].to(cdt)
@@ -328,19 +384,19 @@ def mla_apply(p, x, cfg, *, positions, cache=None, pos=0, window=None):
     k_rope = rope(kv[:, :, None, kvr:], positions, cfg.rope_theta)[:, :, 0]
     kv_valid = S
     if cache is not None:
-        cache["c_kv"][:, pos : pos + S] = c_kv
-        cache["k_rope"][:, pos : pos + S] = k_rope
+        cache["c_kv"][:, pos : pos + S] = like(c_kv, cache["c_kv"])
+        cache["k_rope"][:, pos : pos + S] = like(k_rope, cache["k_rope"])
         c_kv, k_rope = cache["c_kv"], cache["k_rope"]
         kv_valid = pos + S
-    q_abs = torch.einsum("bshd,rhd->bshr", q_nope, p["k_up"].to(cdt).view(kvr, H, dn))
+    q_abs = torch.einsum("bshd,rhd->bshr", q_nope, fit_view(p["k_up"].to(cdt), kvr, H, dn))
     q_cat = torch.cat([q_abs, q_rope], dim=-1)  # (B, S, H, kvr + dr)
     k_cat = torch.cat([c_kv, k_rope], dim=-1)[:, :, None, :]  # one kv head
     o_lat = chunked_attention(
         q_cat, k_cat.to(cdt), c_kv[:, :, None, :].to(cdt), positions, kv_valid,
         True, window, kv_chunk=cfg.kv_chunk,
     )  # (B, S, H, kvr)
-    out = torch.einsum("bshr,rhd->bshd", o_lat, p["v_up"].to(cdt).view(kvr, H, dv))
-    out = out.reshape(B, S, H * dv) @ p["wo"].to(cdt)
+    out = torch.einsum("bshr,rhd->bshd", o_lat, fit_view(p["v_up"].to(cdt), kvr, H, dv))
+    out = fit_reshape(out, B, S, H * dv) @ p["wo"].to(cdt)
     return out.to(x.dtype), cache
 
 
@@ -377,13 +433,13 @@ def cross_apply(p, x, enc, cfg):
     h = rms_norm(x, p["norm"])
     cdt = h.dtype
     e = enc.to(cdt)
-    q = (h @ p["wq"].to(cdt)).view(B, S, H, Dh)
-    k = (e @ p["wk"].to(cdt)).view(B, -1, H, Dh)
-    v = (e @ p["wv"].to(cdt)).view(B, -1, H, Dh)
+    q = fit_view(h @ p["wq"].to(cdt), B, S, H, Dh)
+    k = fit_view(e @ p["wk"].to(cdt), B, -1, H, Dh)
+    v = fit_view(e @ p["wv"].to(cdt), B, -1, H, Dh)
     out = flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=False,
     ).transpose(1, 2)
-    out = out.reshape(B, S, H * Dh) @ p["wo"].to(cdt)
+    out = fit_reshape(out, B, S, H * Dh) @ p["wo"].to(cdt)
     return out.to(x.dtype)
 
 

@@ -38,6 +38,12 @@ stream at each unit boundary and one unit's internals at a time; the
 layers after the last whole unit run unwrapped, as the reference's loop
 after its scan.
 
+The reference's sharding hints (`repro_torch.launch.sharding.constrain`)
+sit at its sites: the embedding, each block's input, the head's logits,
+the loss chunk's input and one-hot labels.  They act on DTensors only
+(parameters and inputs placed on a `DeviceMesh`, the dry-run's partition);
+plain tensors pass through them untouched.
+
 On the ``meta`` device (`build_model(cfg, "meta")`) the model runs with
 no values: `abstract_params` gives its parameters' shapes and dtypes, and
 every step runs as on the card, each kernel's meta route giving outputs
@@ -55,6 +61,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels.common import is_dtensor
+from repro_torch.launch.sharding import checkpoint_contexts, constrain
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as R
@@ -172,12 +180,13 @@ class Model:
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """tokens (B, S), or (B, S, C) with codebooks: the sum of each
         codebook's lookup, added in the compute dtype in codebook order."""
+        lookup = _lookup if is_dtensor(tokens) else (lambda table, t: table[t])
         if self.cfg.num_codebooks:
-            x = params["embed_0"].to(self.dtype)[tokens[..., 0]]
+            x = lookup(params["embed_0"].to(self.dtype), tokens[..., 0])
             for c in range(1, self.cfg.num_codebooks):
-                x = x + params[f"embed_{c}"].to(self.dtype)[tokens[..., c]]
+                x = x + lookup(params[f"embed_{c}"].to(self.dtype), tokens[..., c])
         else:
-            x = params["embed"].to(self.dtype)[tokens]
+            x = lookup(params["embed"].to(self.dtype), tokens)
         return x * self._embed_scale
 
     def _head(self, params, x: torch.Tensor) -> torch.Tensor:
@@ -185,9 +194,11 @@ class Model:
         V), or (B, S, C, V) with codebooks."""
         x = L.rms_norm(x, params["final_norm"])
         if self.cfg.num_codebooks:
-            return torch.stack([x @ params[n].to(self.dtype).T for n in self._embed_names()],
-                               dim=2)
-        return x @ params["embed"].to(self.dtype).T
+            logits = torch.stack(
+                [x @ params[n].to(self.dtype).T for n in self._embed_names()], dim=2)
+        else:
+            logits = x @ params["embed"].to(self.dtype).T
+        return constrain(logits, "batch", "seq", *([None] * (logits.dim() - 3)), "vocab")
 
     def _head_params(self, params) -> dict:
         return {n: params[n] for n in ("final_norm", *self._embed_names())}
@@ -212,7 +223,7 @@ class Model:
         enc = batch.get("encoder")
         if enc is not None:
             enc = torch.as_tensor(enc, device=self.device)
-        x = self._embed(params, tokens)
+        x = constrain(self._embed(params, tokens), "batch", "seq", "embed")
         positions = (pos + torch.arange(S, device=self.device))[None, :].expand(B, S)
         u = len(tuple(cfg.layer_unit))
         remat = cache is None and torch.is_grad_enabled() and any(
@@ -220,7 +231,7 @@ class Model:
         rest = cfg.num_layers // u * u if remat else 0
         for lo in range(0, rest, u):
             x = checkpoint(self._layers, params["layers"][lo : lo + u], x, positions, enc, lo,
-                           use_reentrant=False)
+                           use_reentrant=False, context_fn=checkpoint_contexts)
         return self._layers(params["layers"][rest:], x, positions, enc, rest, cache, pos)
 
     def _layers(self, layers: list, x: torch.Tensor, positions: torch.Tensor, enc,
@@ -231,6 +242,7 @@ class Model:
         ffn = M.moe_apply if cfg.num_experts else L.ffn_apply
         for i, p in enumerate(layers, start=first):
             kind = cfg.layer_kinds[i]
+            x = constrain(x, "batch", "seq", "embed")
             state = None if cache is None else cache[i]
             if kind == "mlstm":
                 delta, state = X.mlstm_apply(p["mix"], x, cfg, state=state, chunk=cfg.mlstm_chunk)
@@ -284,7 +296,7 @@ class Model:
         for i in range(0, S, c):
             total = total + checkpoint(
                 self._xent, head, x[:, i : i + c], labels[:, i : i + c],
-                use_reentrant=False,
+                use_reentrant=False, context_fn=checkpoint_contexts,
             )
         return total / labels.numel()
 
@@ -305,11 +317,27 @@ class Model:
 
         return [one(kind) for kind in self.cfg.layer_kinds]
 
+    def _sharded_cache(self, device_mesh, batch: int, max_len: int) -> list:
+        """`init_cache` as DTensors on ``device_mesh``, placed by the
+        cache's partition specs under the active rules (`launch.specs.
+        cache_specs`; the mesh's default rules when none are active)."""
+        from repro_torch.launch.mesh import Mesh
+        from repro_torch.launch.sharding import ShardingRules, active
+        from repro_torch.launch.specs import cache_specs, dtensors
+
+        rules = active()[0] or ShardingRules(
+            Mesh(tuple(device_mesh.mesh_dim_names), tuple(device_mesh.mesh.shape)))
+        return dtensors(cache_specs(self, rules, batch, max_len), device_mesh, self.device)
+
     def prefill(self, params, batch):
         """(the last position's logits, the cache of the whole prompt): the
         head runs on the last position only."""
         tokens = batch["tokens"]
-        cache = self.init_cache(len(tokens), len(tokens[0]))
+        if is_dtensor(tokens):
+            B, S = tokens.shape[:2]
+            cache = self._sharded_cache(tokens.device_mesh, B, S)
+        else:
+            cache = self.init_cache(len(tokens), len(tokens[0]))
         x = self._hidden(params, batch, cache, 0)
         return self._head(params, x[:, -1:])[:, 0], cache
 
@@ -318,6 +346,57 @@ class Model:
         token's position."""
         logits, cache = self.forward(params, batch, cache=cache, pos=pos)
         return logits[:, 0], cache
+
+
+def _lookup(table, tokens):
+    """``table[tokens]`` of DTensors, as the reference's partitioner runs a
+    vocab-sharded lookup (Megatron's vocab-parallel embedding, through
+    `local_map`): each device looks up the tokens of its batch block that
+    fall in its rows of the table, zeros elsewhere, and the result is a
+    pending sum over the mesh axes that split the vocabulary; the batch
+    stays split as the tokens are."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = tokens.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    if not is_dtensor(table):
+        table = DTensor.from_local(table, mesh, rep, run_check=False)
+    t_pl = tuple(p if p == Shard(0) else Replicate() for p in tokens.placements)
+    w_pl = tuple(Shard(0) if p == Shard(0) and t_pl[i] != Shard(0) else Replicate()
+                 for i, p in enumerate(table.placements))
+    out_pl = tuple(t_pl[i] if t_pl[i] == Shard(0) else Partial() if w_pl[i] == Shard(0)
+                   else Replicate() for i in range(mesh.ndim))
+    splits = [mesh.size(i) for i in range(mesh.ndim) if w_pl[i] == Shard(0)]
+
+    def local(w, t):
+        if not splits:
+            return w[t]
+        rows = w.shape[0]
+        lo = _vocab_block(mesh, w_pl) * rows
+        inside = (t >= lo) & (t < lo + rows)
+        got = w[(t - lo).clamp(0, rows - 1)]
+        return torch.where(inside[..., None], got, torch.zeros((), dtype=w.dtype,
+                                                               device=w.device))
+
+    # The table's gradient sums over the batch blocks it was replicated to.
+    w_grad = tuple(Partial() if t_pl[i] == Shard(0) else w_pl[i] for i in range(mesh.ndim))
+    return local_map(local, out_placements=(out_pl,), in_placements=(w_pl, t_pl),
+                     in_grad_placements=(w_grad, t_pl), device_mesh=mesh,
+                     redistribute_inputs=True)(table, tokens)
+
+
+def _vocab_block(mesh, w_pl) -> int:
+    """This rank's block of a table split over the mesh axes marked
+    ``Shard(0)`` in ``w_pl`` (the first of them major)."""
+    from torch.distributed.tensor import Shard
+
+    coord = mesh.get_coordinate() or [0] * mesh.ndim
+    idx = 0
+    for i, p in enumerate(w_pl):
+        if p == Shard(0):
+            idx = idx * mesh.size(i) + coord[i]
+    return idx
 
 
 def build_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:

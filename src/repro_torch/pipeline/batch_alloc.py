@@ -37,12 +37,42 @@ entries of invalid flows.
 
 from __future__ import annotations
 
+from typing import Sequence
+
+import numpy as np
 import torch
 
+from repro_torch.core.allocation import Allocation
+from repro_torch.core.coflow import CoflowInstance
 from repro_torch.launch.mesh import Sharded, drive, place
-from repro_torch.pipeline.ensemble_batch import PAD_LB, AllocationBatch, EnsembleBatch
+from repro_torch.pipeline.ensemble_batch import (
+    PAD_LB, AllocationBatch, EnsembleBatch, build_ensemble_batch,
+)
 
-__all__ = ["allocate_batch_arrays"]
+__all__ = ["allocate_batch_arrays", "allocate_batch"]
+
+
+def allocate_batch(
+    instances: Sequence[CoflowInstance],
+    orders: Sequence[np.ndarray],
+    include_tau: bool = True,
+    device: str | torch.device = "cuda",
+) -> list[Allocation]:
+    """Greedy allocation for a whole ensemble (the reference's list-in,
+    list-out wrapper): one `build_ensemble_batch` on ``device`` without
+    the LP arrays, `allocate_batch_arrays`, then
+    `AllocationBatch.materialize`.  Bit-identical to ``[allocate(inst,
+    order, include_tau) for ...]``; instances may differ in every
+    dimension."""
+    instances = list(instances)
+    if len(instances) != len(orders):
+        raise ValueError("instances/orders length mismatch")
+    if not instances:
+        return []
+    ensemble = build_ensemble_batch(instances, device, with_lp_arrays=False)
+    batch = allocate_batch_arrays(ensemble, ensemble.pad_orders(orders),
+                                  include_tau=include_tau)
+    return batch.materialize(ensemble)
 
 
 def allocate_batch_arrays(

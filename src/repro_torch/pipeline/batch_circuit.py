@@ -78,7 +78,7 @@ from repro_torch.launch.mesh import NamedSharding, drive
 from repro_torch.pipeline.ensemble_batch import AllocationBatch, EnsembleBatch
 
 __all__ = [
-    "schedule_batch_arrays", "cct_batch_arrays", "member_tables", "event_bound",
+    "schedule_batch", "schedule_batch_arrays", "cct_batch_arrays", "member_tables", "event_bound",
     "resolve_engine", "ENGINES", "ROUNDS",
 ]
 
@@ -826,4 +826,58 @@ def schedule_batch_arrays(
         out.append(
             (schedules, ccts_from_schedules(ensemble.num_coflows[b], schedules))
         )
+    return out
+
+
+def schedule_batch(
+    instances: Sequence[CoflowInstance],
+    allocs: Sequence[Allocation],
+    orders: Sequence[np.ndarray],
+    discipline: str = "reserving",
+    engine: str = "auto",
+    device: str | torch.device = "cuda",
+) -> list[tuple[list[CoreSchedule], np.ndarray]]:
+    """Circuit-schedule a whole ensemble from per-instance allocations (the
+    reference's list-of-`Allocation` oracle API): each (instance, core)
+    member table (`member_tables`) runs through the ``engine`` calendar on
+    ``device`` (``"auto"``: `resolve_engine`), and empty cores become
+    empty `CoreSchedule`s.  Returns one ``(core_schedules, ccts)`` pair
+    per instance, bit-identical to `repro_torch.core.scheduler.
+    _schedule_all_cores` and `ccts_from_schedules` per instance.  The
+    production path is `schedule_batch_arrays`, which reads the padded
+    `EnsembleBatch` / `AllocationBatch` tensors instead."""
+    instances = list(instances)
+    if not (len(instances) == len(allocs) == len(orders)):
+        raise ValueError("instances/allocs/orders length mismatch")
+    if not instances:
+        return []
+    dev = torch.device(device)
+    tables = [member_tables(inst, alloc, order)
+              for inst, alloc, order in zip(instances, allocs, orders)]
+    members = [(b, k, tab) for b, cores in enumerate(tables)
+               for k, tab in enumerate(cores) if tab["coflow"].shape[0]]
+    if members:
+        est, comp = _execute_members(
+            [tab for _, _, tab in members], max(inst.num_ports for inst in instances),
+            discipline, dev, [f"instance {b}, core {k}" for b, k, _ in members],
+            engine=engine,
+        )
+    by_member = {(b, k): g for g, (b, k, _) in enumerate(members)}
+    out = []
+    for b, (inst, cores) in enumerate(zip(instances, tables)):
+        schedules = []
+        for k, tab in enumerate(cores):
+            F = tab["coflow"].shape[0]
+            if F == 0:
+                z = np.zeros(0)
+                zi = np.zeros(0, dtype=np.int64)
+                schedules.append(CoreSchedule(zi, zi, zi, z, z, z, tab["rate"], inst.delta))
+                continue
+            g = by_member[b, k]
+            schedules.append(CoreSchedule(
+                coflow=tab["coflow"], src=tab["src"], dst=tab["dst"], size=tab["size"],
+                establish=est[g, :F].copy(), complete=comp[g, :F].copy(),
+                rate=tab["rate"], delta=inst.delta,
+            ))
+        out.append((schedules, ccts_from_schedules(inst.num_coflows, schedules)))
     return out

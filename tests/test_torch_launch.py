@@ -28,11 +28,15 @@ Contracts (all exact unless stated):
     parsers;
   * `OpCounter`: identical operations and bytes on ``meta`` and on the
     host for reduced gemma3, xLSTM and MLA steps (train, prefill,
-    decode); the ``mm`` FLOPs of reduced dense gemma3 (every product but
+    decode); the sLSTM loop on ``meta``, one step counted by its trip
+    count, equal to every step run on the host, the high-water mark
+    included; the ``mm`` FLOPs of reduced dense gemma3 (every product but
     attention's, whose twin's backward runs ``bmm``) equal to the count
     from the parameter shapes;
   * `run_cell`'s keys are the reference's, with the renames listed in its
-    docstring, and `report` prints its three tables.
+    docstring, and `report` prints its three tables; on a production mesh
+    the step is partitioned (``spmd``) and the per-device products are at
+    least the whole count's even share.
 """
 
 import ast
@@ -449,6 +453,48 @@ def test_op_count_is_the_same_on_meta_and_host(arch, kind):
     assert meta.peak_bytes > 0 and meta.collective_total == 0.0
 
 
+@pytest.mark.parametrize("unit,kind", [
+    (None, "train"), (("slstm",), "train"), (("slstm",), "prefill"), (("slstm",), "decode"),
+])
+def test_time_loop_counts_every_step(unit, kind, monkeypatch):
+    """On meta the sLSTM's loop runs one step counted by its trip count
+    (`op_cost.time_loop`), forward and backward; on the host every step
+    runs.  Operations, products, transcendentals, bytes and ATen ops are
+    equal, and so is the high-water mark: the steps' input states and
+    outputs go to buffers made before the loop.  The reduced model with
+    its published unit (7 mLSTM, 1 sLSTM) trains; a model of two sLSTM
+    layers also prefills and decodes (the mLSTM's host twin holds more at
+    the prefill's peak than its meta route, whatever the sLSTM does)."""
+    import repro_torch.models.xlstm as X
+
+    cfg = _reduced("xlstm-1.3b")
+    if unit:
+        cfg = dataclasses.replace(cfg, num_layers=2, layer_unit=unit)
+    calls = {"fwd": 0, "back": 0}
+
+    def spy(name, fn):
+        def run(*args):
+            calls[name] += 1
+            return fn(*args)
+        return run
+
+    monkeypatch.setattr(X, "_slstm_step", spy("fwd", X._slstm_step))
+    monkeypatch.setattr(X, "_slstm_step_back", spy("back", X._slstm_step_back))
+    meta = _count(cfg, kind, "meta")
+    once = dict(calls)
+    host = _count(cfg, kind, "cpu")
+    every = {k: v - once[k] for k, v in calls.items()}
+    S = 1 if kind == "decode" else 40
+    layers = cfg.layer_kinds.count("slstm")
+    # Training: the forward, the unit's recompute, the backward.
+    assert every == {"fwd": 2 * S * layers if kind == "train" else S * layers,
+                     "back": S * layers if kind == "train" else 0}
+    assert once == {k: v if S == 1 else v // S for k, v in every.items()}
+    assert (meta.flops, meta.matmul_flops, meta.transcendentals, meta.bytes, meta.ops) == (
+        host.flops, host.matmul_flops, host.transcendentals, host.bytes, host.ops)
+    assert meta.peak_bytes == host.peak_bytes > 0
+
+
 def test_matmul_flops_equal_the_count_from_shapes():
     """Reduced dense gemma3 with two whole units and one layer more, 2 x
     40 tokens.  A layer's products per token: 2 x (D Hq Dh + 2 D Hkv Dh +
@@ -571,25 +617,39 @@ def _reduced_overrides(arch):
 def test_run_cell_keys_and_report(tmp_path, capsys):
     """Reduced gemma3 train, prefill and decode cells on both production
     meshes (and xLSTM's decode): the reference's keys with the renames,
-    per-device counts split evenly, and `report`'s three tables."""
+    the step partitioned (``spmd``): per-device products at least the
+    whole count's even share, collective bytes on the train cells, a
+    useful-FLOPs ratio no higher than the even split's; and `report`'s
+    three tables."""
     top, memory, cost = _reference_result_keys()
     renamed = (top - {"compile_s"}) | {"trace_s", "partition"}
     shapes = [ShapeSpec("train_64", 64, 32, "train"), ShapeSpec("prefill_64", 64, 32, "prefill"),
               ShapeSpec("decode_64", 64, 32, "decode")]
     results = []
+    wholes = {s.name: dryrun.run_cell("gemma3-1b", s, "local", device="cpu",
+                                      cfg_overrides=_reduced_overrides("gemma3-1b"))
+              for s in shapes}
     for mesh in ("single", "multi"):
         for shape in shapes:
             res = dryrun.run_cell("gemma3-1b", shape, mesh,
                                   cfg_overrides=_reduced_overrides("gemma3-1b"))
             results.append(res)
+            whole = wholes[shape.name]
+            assert whole["partition"] == "whole" and whole["chips"] == 1
+            assert res["cost"]["matmul_flops"] >= whole["cost"]["matmul_flops"] / res["chips"]
+            assert res["useful_flops_ratio"] <= whole["useful_flops_ratio"]
+            if shape.kind == "train":
+                assert res["collectives"]["total"] > 0
+                assert res["roofline"]["collective_s"] > 0
     results.append(dryrun.run_cell("xlstm-1.3b", shapes[2], "single",
                                    cfg_overrides=_reduced_overrides("xlstm-1.3b")))
     for res in results:
         assert set(res) == renamed
         assert set(res["memory"]) == (memory - {"fits_hbm_16g"}) | {"fits_hbm", "hbm_bytes"}
         assert set(res["cost"]) >= cost - {"xla_flops", "xla_bytes_accessed"}
-        assert res["partition"] == "even" and res["remat"] == "unit"
-        assert res["collectives"]["total"] == 0.0 and res["roofline"]["collective_s"] == 0.0
+        assert res["partition"] == "spmd" and res["remat"] == "unit"
+        assert res["collectives"]["total"] == sum(
+            v for k, v in res["collectives"].items() if k != "total")
         assert res["memory"]["argument_bytes"] > 0 and res["memory"]["fits_hbm"]
         assert res["cost"]["device_flops"] > 0
         path = tmp_path / f"{res['arch']}__{res['shape']}__{res['mesh']}.json"
@@ -610,11 +670,14 @@ def test_run_cell_keys_and_report(tmp_path, capsys):
 def test_run_cell_every_arch(arch):
     """Every family's reduced train, prefill and decode cells run on meta
     (no value read, no bounds check, no count off a tensor) on both
-    production meshes; the experts' dispatch groups follow the data ways."""
+    production meshes, partitioned over them (``spmd``: DTensors on a fake
+    process group, torn down after each cell); the experts' dispatch
+    groups follow the data ways."""
     for mesh in ("single", "multi"):
         for shape in (ShapeSpec("t", 32, 32, "train"), ShapeSpec("p", 32, 32, "prefill"),
                       ShapeSpec("d", 32, 32, "decode")):
             res = dryrun.run_cell(arch, shape, mesh, cfg_overrides=_reduced_overrides(arch))
+            assert res["partition"] == "spmd" and not torch.distributed.is_initialized()
             assert res["cost"]["device_flops"] > 0 and res["memory"]["argument_bytes"] > 0
             assert res["model_flops"] > 0 and res["roofline"]["bound_s"] > 0
 

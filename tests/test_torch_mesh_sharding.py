@@ -134,8 +134,8 @@ def test_place_refuses_what_does_not_split():
         place(torch.zeros(5), data_sharding(host_mesh(2)))
     with pytest.raises(ValueError, match="no such axis"):
         NamedSharding(host_mesh(2), ("pod",))
-    with pytest.raises(ValueError, match="leading axis"):
-        NamedSharding(host_mesh(2), ("data", "model"))
+    with pytest.raises(ValueError, match="once"):
+        NamedSharding(host_mesh(2), ("data", "data"))
     with pytest.raises(ValueError, match="no devices"):
         data_sharding(Mesh(("data", "model"), (16, 16))).devices()
 
